@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one card and check it.
+"""Drive the PyTorch/CUDA port's serving paths on one card and check them.
 
     python3 chip_smoke.py
 
@@ -7,7 +7,7 @@ Phases, one flushed line each:
 
 1. device: the card's name and power limit, torch/CUDA versions; TF32 off.
 2. build: the one nvcc call over csrc/*.cu, its seconds and ptxas report.
-3. main path: FaceAnalysis("buffalo_l") with seeded synthetic det_10g +
+3. rgb path: FaceAnalysis("buffalo_l") with seeded synthetic det_10g +
    IResNet-50 weights in bf16 on a 640x640 canvas serves 3 requests of 8
    BGR 640x480 frames (get_batch), then match_faces(draw=False) on every
    frame against a 65,536-capacity gallery holding request 1's faces plus
@@ -15,7 +15,18 @@ Phases, one flushed line each:
    find its own id at score >= 0.99, and the launch counters of both
    kernels, zeroed just before, must be > 0.  A small det_2.5g + r18 f32
    engine on the card is then held against the same engine on the CPU.
-4. kernels vs their plain PyTorch versions, on the card, at the path's
+4. yuv path: FaceAnalysis("buffalo_l", EngineConfig(stream_transport=
+   "yuv420", packed_stem_impl="pallas", gallery_dtype="int8")), det_10g +
+   r50 in bf16, serves 3 requests of 8 BGR 640x480 frames (host yuv420
+   encode included) through K4 (fused stem), K3 and K2 (int8 top-1), then
+   match_faces against an int8 gallery (capacity 65,536, n_valid 50,000:
+   request 1's faces plus seeded distractors).  The launch counters of K4,
+   K3 and K2, zeroed just before, must be > 0; K2's ids and scores on the
+   path must equal the plain int8 version's; request 1's faces must be
+   recognized, with the f32 plain match's ids wherever its top-1 leads the
+   runner-up by more than 5e-3.  A small det_2.5g + r18 f32 engine on the
+   same configuration runs yuv packs on the card and on the CPU.
+5. kernels vs their plain PyTorch versions, on the card, at the paths'
    shapes:
    - K3 at M = 256 on request 1's ROIs (with the path's pyramid-level
      histogram and the share of output pixels whose taps clamp to the ROI
@@ -25,10 +36,22 @@ Phases, one flushed line each:
      embeddings of requests 2-3 as queries, then on a copy of that gallery
      with exact self-matches and ties planted in the last valid row chunk
      and across chunks, and rows past n_valid that would win if read; plus
-     n_valid = 0.
-5. times: CUDA events after warm-up; bounds from this run's inputs (K3's
+     n_valid = 0;
+   - K4 at B = 8, 640x640, sw = 28 on request 1's packed frames of the yuv
+     path, in bf16 and f32, and at 128x64 with sw = 12 (edge tiles);
+   - K2 at B = 1, 32, 256 on the yuv path's int8 gallery with requests
+     2-3's embeddings as queries, on a planted copy as for K1, and with
+     n_valid = 0: ids and values exactly equal;
+   - the yuv mix on the card against the CPU on every (Y, U, V) triple.
+6. times: CUDA events after warm-up; bounds from this run's inputs (K3's
    bytes are the ROI pixels its taps read, not the whole ROI).
-6. the card line, then {"ok": true, "device": ...} as the last line.
+7. the card line, then {"ok": true, "device": ...} as the last line.
+
+    python3 chip_smoke.py --profile
+
+also traces one more request of each path with torch.profiler after the
+checks: wall time, the device's busy share and the kernels that take the
+most device time.
 
 Any failed check or exception exits non-zero before the last line.  With no
 CUDA device, or without the port's package beside it, it exits non-zero
@@ -48,11 +71,19 @@ import numpy as np
 DET_THRESH = 0.5   # synthetic weights saturate scores: every slot is valid
 REQUESTS = 3
 FRAMES = 8
-CAPACITY_ROWS = 50_000
+CAPACITY_ROWS = 50_000          # n_valid of the galleries
+CAPACITY = 65_536               # their padded capacity
+TIE_ROW, FAR_ROW = 30_000, 65_000  # planted rows: a tie across chunks, one past n_valid
+CANVAS = 640                    # det canvas side
+FRAME_H, FRAME_W = 480, 640     # camera frames (letterbox scale 1.0 on the canvas)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # FP32 CUDA cores; bf16 tensor cores
+# FP32 CUDA cores; bf16 and int8 tensor cores (dense)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 WARP_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/warp.cu"
 MATCH_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match.cu"
+MATCH_INT8_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match_int8.cu"
+STEM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/stem.cu"
+INT8_MARGIN = 5e-3  # f32 top-1 lead over the runner-up above which int8 must agree
 
 
 def say(*parts) -> None:
@@ -95,6 +126,31 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def profile_request(torch, fn, label: str, top: int = 12) -> None:
+    """Trace one call of fn (one request): wall ms, device-busy ms (the sum of
+    the kernels' device time; one stream, so kernels do not overlap) and the
+    kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies, memsets): operator rows would
+    # count their kernels' time a second time
+    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    say(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}%")
+    for us, count, key in rows[:top]:
+        say(f"[profile] {label}:   {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
 def warp_footprint(torch, rois, mats, out_size: int = 112):
     """(ROI pixels that K3's taps read with a non-zero weight, share of output
     pixels with a row or column coordinate clamped to the ROI border), from
@@ -125,7 +181,7 @@ def warp_footprint(torch, rois, mats, out_size: int = 112):
     return int(read.sum()), float(clamped.float().mean())
 
 
-def in_canvas_kps(rng, n: int, width: int = 640, height: int = 480, dst=None):
+def in_canvas_kps(rng, n: int, width: int = FRAME_W, height: int = FRAME_H, dst=None):
     """n faces' landmarks: ARCFACE_DST at scales 0.5-4 and rotations within
     +-0.5 rad, centred so every landmark lies inside a width x height frame."""
     base = dst - dst.mean(0)
@@ -142,12 +198,12 @@ def in_canvas_kps(rng, n: int, width: int = 640, height: int = 480, dst=None):
 
 def camera_frames(rng, n: int) -> list:
     """Seeded BGR 640x480 frames: smooth shading plus sensor noise."""
-    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    yy, xx = np.mgrid[0:FRAME_H, 0:FRAME_W].astype(np.float32)
     frames = []
     for _ in range(n):
         gx, gy, base = rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2), rng.uniform(60, 190)
-        img = base + gx * (xx - 320) + gy * (yy - 240)
-        img = img[..., None] + rng.normal(0, 25, (480, 640, 3))
+        img = base + gx * (xx - FRAME_W / 2) + gy * (yy - FRAME_H / 2)
+        img = img[..., None] + rng.normal(0, 25, (FRAME_H, FRAME_W, 3))
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
     return frames
 
@@ -165,9 +221,14 @@ def main() -> int:
     from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine
     from facerecognition_infrenceengine_tpu_torch.engine.recognizer import (
         FaceRecognitionProcessor)
+    from facerecognition_infrenceengine_tpu_torch import native
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import _YUV_BLACK, bucket
     from facerecognition_infrenceengine_tpu_torch.kernels import build
+    from facerecognition_infrenceengine_tpu_torch.models import scrfd
+    from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
     from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis, letterbox
-    from facerecognition_infrenceengine_tpu_torch.ops import match_kernel, warp2pass, warp_kernel
+    from facerecognition_infrenceengine_tpu_torch.ops import (
+        match_kernel, stem_kernel, warp2pass, warp_kernel, yuv)
     from facerecognition_infrenceengine_tpu_torch.ops.align import (
         ARCFACE_DST, _invert_affine, umeyama_similarity)
 
@@ -190,7 +251,8 @@ def main() -> int:
             say(f"[build] {line.strip()}")
 
     # ------------------------------------------------------------- main path
-    cfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH), engine=EngineConfig())
+    cfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
+                 engine=EngineConfig(det_size=(CANVAS, CANVAS)))
     t0 = time.perf_counter()
     app = FaceAnalysis("buffalo_l", cfg=cfg.engine, device="cuda")
     app.prepare(ctx_id=0, det_thresh=DET_THRESH)
@@ -235,7 +297,7 @@ def main() -> int:
     say(f"[path] gallery capacity {snap.device_matrix.shape[0]} n_valid {snap.size} "
         f"({snap.dtype}), built in {setup_ms:.1f} ms")
     say(f"[path] launches on the path {launches}")
-    check(snap.device_matrix.shape[0] == 65536 and snap.size == CAPACITY_ROWS, "gallery shape")
+    check(snap.device_matrix.shape[0] == CAPACITY and snap.size == CAPACITY_ROWS, "gallery shape")
     check(all(n > 0 for n in faces_per_request), "a request found no valid slot")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
     for fl in sum((f for f, _ in results), []):
@@ -269,6 +331,136 @@ def main() -> int:
     say(f"[path] det_2.5g+r18 f32 card vs CPU: {int(valid.sum())} valid slots identical, "
         f"embedding cos >= {cos.min():.7f}, box/kps err {box_err:.2e} of max")
 
+    # ------------------------------------------------------------- yuv path
+    ycfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
+                  engine=EngineConfig(det_size=(CANVAS, CANVAS), stream_transport="yuv420",
+                                      packed_stem_impl="pallas", gallery_dtype="int8"))
+    t0 = time.perf_counter()
+    yapp = FaceAnalysis("buffalo_l", cfg=ycfg.engine, device="cuda")
+    yapp.prepare(ctx_id=0, det_thresh=DET_THRESH)
+    yengine = yapp._ensure_engine()
+    say(f"[yuv] FaceAnalysis(buffalo_l) det_10g + r50 {ycfg.engine.dtype} "
+        f"{ycfg.engine.det_size}, stream_transport=yuv420 packed_stem_impl=pallas "
+        f"gallery_dtype=int8, built in {time.perf_counter() - t0:.2f} s")
+    check(all(yapp._yuv_eligible(yengine, frames) for frames in requests), "yuv path not taken")
+    ygal = GalleryManager(ycfg, device="cuda")
+    yproc = FaceRecognitionProcessor(ygal, face_app=yapp, cfg=ycfg)
+
+    stem_kernel.fused_stem.launches = 0
+    warp_kernel.warp_rois.launches = 0
+    match_kernel.gallery_top1_int8.launches = 0
+    match_kernel.gallery_top1.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    y_ms, y_faces, y_results = [], [], []
+    y_setup_ms = 0.0
+    for r, frames in enumerate(requests):
+        t0 = time.perf_counter()
+        faces = yapp.get_batch(frames)
+        if r == 0:  # enrol request 1's faces plus the same seeded distractors
+            t1 = time.perf_counter()
+            yown = [f"r0-f{i}-s{j}" for i, fl in enumerate(faces) for j in range(len(fl))]
+            emb = [f.normed_embedding for fl in faces for f in fl]
+            n_dis = CAPACITY_ROWS - len(yown)
+            dis = np.random.default_rng(1).normal(size=(n_dis, 512)).astype(np.float32)
+            ymatrix = np.concatenate([np.stack(emb), dis])
+            yids = yown + [f"distractor-{k}" for k in range(n_dis)]
+            ymeta = {pid: {"type": "employee", "name": pid} for pid in yids}
+            ysnap = ygal.set_snapshot(yids, ymeta, ymatrix, company_id="site-1")
+            torch.cuda.synchronize()
+            y_setup_ms = (time.perf_counter() - t1) * 1e3
+        out = [yproc.match_faces(frame, fl, "site-1", draw=False)[1]
+               for frame, fl in zip(frames, faces)]
+        torch.cuda.synchronize()
+        y_ms.append((time.perf_counter() - t0) * 1e3 - (y_setup_ms if r == 0 else 0.0))
+        y_faces.append(sum(len(fl) for fl in faces))
+        y_results.append((faces, out))
+    y_launches = {"fused_stem": stem_kernel.fused_stem.launches,
+                  "warp_rois": warp_kernel.warp_rois.launches,
+                  "gallery_top1_int8": match_kernel.gallery_top1_int8.launches,
+                  "gallery_top1": match_kernel.gallery_top1.launches}
+    y_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    say(f"[yuv] request wall ms {[round(t, 1) for t in y_ms]}, peak memory {y_peak_mb:.1f} MiB")
+    if "--profile" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        for f in requests[1]:
+            yapp.encode_frame(f)
+        say(f"[profile] yuv host encode of request 2's {FRAMES} frames: "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+        for label, fa, pr in (("rgb", app, proc), ("yuv", yapp, yproc)):
+            profile_request(torch, lambda: [pr.match_faces(f, fl, "site-1", draw=False)
+                                            for f, fl in zip(requests[1],
+                                                             fa.get_batch(requests[1]))],
+                            f"{label} request 2")
+    say(f"[yuv] valid slots per request {y_faces} of {FRAMES * ycfg.engine.max_faces}")
+    say(f"[yuv] int8 gallery capacity {ysnap.device_matrix.shape[0]} n_valid {ysnap.size} "
+        f"scale {ysnap.int8_scale:.6g}, built in {y_setup_ms:.1f} ms")
+    say(f"[yuv] launches on the path {y_launches}")
+    check(ysnap.device_matrix.shape[0] == CAPACITY and ysnap.size == CAPACITY_ROWS
+          and ysnap.device_matrix.dtype == torch.int8, "int8 gallery shape")
+    check(all(n > 0 for n in y_faces), "a yuv request found no valid slot")
+    check(all(y_launches[k] > 0 for k in ("fused_stem", "warp_rois", "gallery_top1_int8")),
+          f"a kernel of the yuv path was not launched: {y_launches}")
+    for fl in sum((f for f, _ in y_results), []):
+        for face in fl:
+            check(np.isfinite(face.bbox).all() and np.isfinite(face.kps).all(), "non-finite box")
+            check(abs(float(np.linalg.norm(face.normed_embedding)) - 1.0) < 1e-3, "embedding norm")
+
+    # K2 on the path against the plain int8 version; request 1 against f32
+    ymat32 = torch.from_numpy(ymatrix / np.linalg.norm(ymatrix, axis=1, keepdims=True)).to(dev)
+    ycols = torch.arange(ymat32.shape[0], device=dev)
+    compared, under_margin, own_ok = 0, 0, 0
+    for r, (faces, out) in enumerate(y_results):
+        for fl, rows in zip(faces, out):
+            if not fl:
+                continue
+            embs = np.stack([f.normed_embedding for f in fl])
+            embs = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+            q = np.zeros((bucket(len(fl)), 512), np.float32)
+            q[:len(fl)] = embs
+            qd = torch.from_numpy(q).to(dev)
+            pv, pi = match_kernel.gallery_top1_int8_plain(qd, ysnap.device_matrix,
+                                                          ysnap.int8_scale, ysnap.size)
+            pv, pi = pv.cpu().numpy()[:len(fl)], pi.cpu().numpy()[:len(fl)]
+            for row, v, i in zip(rows, pv, pi):
+                check(row["similarity"] == float(v), f"K2 on the path: score {row['similarity']} "
+                      f"vs plain {float(v)}")
+                want_id = yids[i] if v >= ycfg.thresholds.recognition else None
+                check(row["person_id"] == want_id, f"K2 on the path: id {row['person_id']} "
+                      f"vs plain {want_id}")
+                compared += 1
+            if r == 0:
+                s32 = qd[:len(fl)] @ ymat32.T
+                s32 = torch.where(ycols < CAPACITY_ROWS, s32, float("-inf"))
+                top2 = s32.topk(2, dim=1)
+                for row, vals, idx in zip(rows, top2.values.tolist(), top2.indices.tolist()):
+                    check(row["recognized"], f"request 1 face not recognized: {row}")
+                    if vals[0] - vals[1] > INT8_MARGIN:
+                        check(row["person_id"] == yids[idx[0]],
+                              f"request 1: int8 id {row['person_id']} vs f32 {yids[idx[0]]}")
+                        own_ok += 1
+                    else:
+                        under_margin += 1
+    say(f"[yuv] K2 on the path: {compared} faces' ids and scores equal to the plain int8 "
+        f"version; request 1: {len(yown)}/{len(yown)} recognized, {own_ok} with the f32 id "
+        f"(f32 lead > {INT8_MARGIN}), {under_margin} under that margin")
+
+    # small engine on the yuv / pallas / int8 configuration: card vs CPU
+    small_y = EngineConfig(det_size=(128, 128), max_faces=8, pre_nms_topk=64, dtype="float32",
+                           stream_transport="yuv420", packed_stem_impl="pallas",
+                           gallery_dtype="int8")
+    packs = np.stack([native.pack_yuv420_s2d4(c) for c in canvas])
+    y_card = FaceEngine(small_y, det_arch="det_2.5g", rec_arch="r18", device="cuda")
+    y_cpu = FaceEngine(small_y, det_arch="det_2.5g", rec_arch="r18", device="cpu")
+    got = y_card.detect_align_embed_yuv420_flat(packs, DET_THRESH).cpu().numpy()
+    want = y_cpu.detect_align_embed_yuv420_flat(packs, DET_THRESH).numpy()
+    valid = want[..., 15] > 0.5
+    check(np.array_equal(got[..., 15] > 0.5, valid) and valid.any(), "small yuv engine: valid slots")
+    cos = (got[..., 16:][valid] * want[..., 16:][valid]).sum(-1)
+    box_err = float(np.abs(got[..., :15] - want[..., :15]).max() / max(1.0, np.abs(want[..., :15]).max()))
+    check(cos.min() >= 1 - 1e-4 and box_err <= 1e-4, f"small yuv engine: cos {cos.min()} box {box_err}")
+    say(f"[yuv] det_2.5g+r18 f32 yuv/pallas card vs CPU: {int(valid.sum())} valid slots "
+        f"identical, embedding cos >= {cos.min():.7f}, box/kps err {box_err:.2e} of max")
+
     # ------------------------------------------------- kernels vs plain, card
     # K3 on the path's own ROIs: request 1's 256 slots, as get_batch warped them
     canvases = np.stack([letterbox(f[..., ::-1], cfg.engine.det_size)[0] for f in requests[0]])
@@ -282,8 +474,8 @@ def main() -> int:
             _invert_affine(umeyama_similarity(path_kps, engine._dst)), cfg.engine.embed_size)
         path_rois, path_mats = warp2pass.extract_rois(frames_dev, fidx, path_kps,
                                                       cfg.engine.embed_size, dst=engine._dst)
-    inside = ((path_kps[..., 0] >= 0) & (path_kps[..., 0] < 640)
-              & (path_kps[..., 1] >= 0) & (path_kps[..., 1] < 480)).float().mean()
+    inside = ((path_kps[..., 0] >= 0) & (path_kps[..., 0] < FRAME_W)
+              & (path_kps[..., 1] >= 0) & (path_kps[..., 1] < FRAME_H)).float().mean()
     path_err = float((warp_kernel.warp_rois(path_rois, path_mats)
                       - warp_kernel.warp_rois_plain(path_rois, path_mats)).abs().max())
     check(path_err <= 1e-3, f"K3 on the path's ROIs: max abs err {path_err}")
@@ -358,22 +550,119 @@ def main() -> int:
     planted = gal32.clone()
     planted[last - 9] = qa
     planted[last - 4] = qa        # tie inside the last chunk: last - 9 wins
-    planted[30_000] = qb
+    planted[TIE_ROW] = qb
     planted[last] = qb            # tie across chunks: 30,000 wins
     planted[CAPACITY_ROWS + 10] = 4 * qa   # past n_valid, in the last valid chunk
-    planted[65_000] = 4 * qb               # past n_valid, far
-    want = torch.tensor([last - 9, 30_000], dtype=torch.int32, device=dev)
+    planted[FAR_ROW] = 4 * qb               # past n_valid, far
+    want_rows = torch.tensor([last - 9, TIE_ROW], dtype=torch.int32, device=dev)
     for dtype_name, gal in (("float32", planted), ("bfloat16", planted.bfloat16())):
         for bq in (1, 32, 256):
             q = torch.cat([torch.stack([qa, qb]), far])[:bq].contiguous()
             err, i = compare_top1(q, gal, CAPACITY_ROWS, dtype_name, f"planted B={bq}")
             top1_err[dtype_name] = max(top1_err[dtype_name], err)
-            check(torch.equal(i[:2], want[:bq]),
-                  f"K1 {dtype_name} planted B={bq}: got {i[:2].tolist()}, want {want[:bq].tolist()}")
+            check(torch.equal(i[:2], want_rows[:bq]),
+                  f"K1 {dtype_name} planted B={bq}: got {i[:2].tolist()}, "
+                  f"want {want_rows[:bq].tolist()}")
     say(f"[kernels] K1 planted gallery: self-matches at rows {last - 9} (last chunk, tie with "
-        f"{last - 4}) and 30000 (tie with {last}) found in f32 and bf16 at B=1,32,256; rows "
-        f"{CAPACITY_ROWS + 10} and 65000 past n_valid never won; max abs err f32 "
+        f"{last - 4}) and {TIE_ROW} (tie with {last}) found in f32 and bf16 at B=1,32,256; rows "
+        f"{CAPACITY_ROWS + 10} and {FAR_ROW} past n_valid never won; max abs err f32 "
         f"{top1_err['float32']:.2e} bf16 {top1_err['bfloat16']:.2e}")
+
+    # K4 on request 1's packed frames of the yuv path, bf16 (the path's) and f32
+    ypacks = yapp._stack_yuv([yapp.encode_frame(f) for f in requests[0]], CANVAS)
+    ypacks = torch.from_numpy(ypacks).to(dev)
+    black = torch.tensor(_YUV_BLACK, dtype=torch.uint8, device=dev)
+    ypacks = torch.cat([ypacks, black.expand(FRAMES, CANVAS // 4 - ypacks.shape[1], CANVAS // 4, 24)], dim=1)
+    x48 = yuv.yuv420p4_to_rgbp4(ypacks).contiguous()
+    sw = yengine.stem_width
+    stem_w = {"bfloat16": yengine.stem_weights,
+              "float32": {k: v.to(dev) for k, v in stem_kernel.precompute_fused_stem(
+                  load_or_init("scrfd_det_10g", scrfd.SCRFD(scrfd.CONFIGS["det_10g"]), 0),
+                  torch.float32).items()}}
+    small_sw = y_card.stem_width
+    small_w = {"float32": y_card.stem_weights,
+               "bfloat16": {k: v.to(dev) for k, v in stem_kernel.precompute_fused_stem(
+                   load_or_init("scrfd_det_2.5g", scrfd.SCRFD(scrfd.CONFIGS["det_2.5g"]), 0),
+                   torch.bfloat16).items()}}
+    stem_err = {}
+
+    def compare_stem(x, wts, width, dtype_name, what):
+        got = stem_kernel.fused_stem_s2d4(x, wts, width).float()
+        want = stem_kernel.fused_stem_plain(x, wts, width).float()
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        if dtype_name == "float32":
+            # f32 summation order
+            check(err <= 1e-4 * max(1.0, top), f"K4 f32 {what}: err {err} (max {top})")
+        else:
+            # each conv output is cast to bf16 after f32 sums in another order:
+            # one bf16 step (2**-8 relative) can carry into the next conv
+            same = float((got == want).float().mean())
+            check(err <= 2.0 ** -6 * top and same >= 0.9,
+                  f"K4 bf16 {what}: err {err} (max {top}), equal share {same}")
+        return err, top
+
+    for dtype_name in ("bfloat16", "float32"):
+        err, top = compare_stem(x48, stem_w[dtype_name], sw, dtype_name, "B=8 640x640")
+        stem_err[dtype_name] = err
+        err2, _ = compare_stem(x48[:, :32, :16].contiguous(), small_w[dtype_name], small_sw,
+                               dtype_name, "B=8 128x64 sw=12")
+        say(f"[kernels] K4 {dtype_name}: B=8 640x640 sw={sw} on request 1's packed frames max "
+            f"abs err {err:.3e} (outputs up to {top:.3f}); 128x64 sw={small_sw} {err2:.3e}")
+
+    # K2 on the yuv path's int8 gallery, queried with requests 2-3's embeddings
+    g8 = ysnap.device_matrix
+    gs = ysnap.int8_scale
+    yfar = torch.from_numpy(np.stack([fc.normed_embedding for faces, _ in y_results[1:]
+                                      for fl in faces for fc in fl])[:256]).to(dev)
+
+    def compare_int8(q, gal, n_valid, what):
+        v, i = match_kernel.gallery_top1_int8(q, gal, gs, n_valid)
+        pv, pi = match_kernel.gallery_top1_int8_plain(q, gal, gs, n_valid)
+        check(torch.equal(i, pi) and torch.equal(v, pv), f"K2 {what}: differs from plain")
+        return i
+
+    for bq in (1, 32, 256):
+        i = compare_int8(yfar[:bq].contiguous(), g8, CAPACITY_ROWS, f"B={bq}")
+    for bq in (1, 32, 256):
+        v, i = match_kernel.gallery_top1_int8(yfar[:bq].contiguous(), g8, gs, 0)
+        check(bool(torch.all(v == float("-inf"))) and bool(torch.all(i == 0)),
+              f"K2 n_valid=0 B={bq}")
+    i8_chunk = build.lib().fre_gallery_top1_int8_rows_per_block()
+    say(f"[kernels] K2 path int8 gallery N={g8.shape[0]} n_valid={CAPACITY_ROWS}, requests 2-3 "
+        f"as queries B=1,32,256: ids and values equal to plain; top-1 rows "
+        f"{int(i.min())}..{int(i.max())} in {i.div(i8_chunk, rounding_mode='floor').unique().numel()}"
+        f" of {-(-CAPACITY_ROWS // i8_chunk)} {i8_chunk}-row chunks; n_valid=0 -> -inf")
+    qa8 = torch.clamp(torch.round(qa / gs), -127, 127).to(torch.int8)
+    qb8 = torch.clamp(torch.round(qb / gs), -127, 127).to(torch.int8)
+    planted8 = g8.clone()
+    planted8[last - 9] = qa8
+    planted8[last - 4] = qa8           # tie inside the last chunk: last - 9 wins
+    planted8[TIE_ROW] = qb8
+    planted8[last] = qb8               # tie across chunks: 30,000 wins
+    planted8[CAPACITY_ROWS + 10] = (127 * torch.sign(qa)).to(torch.int8)  # past n_valid
+    planted8[FAR_ROW] = (127 * torch.sign(qb)).to(torch.int8)
+    for bq in (1, 32, 256):
+        q = torch.cat([torch.stack([qa, qb]), yfar])[:bq].contiguous()
+        i = compare_int8(q, planted8, CAPACITY_ROWS, f"planted B={bq}")
+        check(torch.equal(i[:2], want_rows[:bq]),
+              f"K2 planted B={bq}: got {i[:2].tolist()}, want {want_rows[:bq].tolist()}")
+    say(f"[kernels] K2 planted int8 gallery: self-matches at rows {last - 9} and {TIE_ROW} "
+        f"(ties with {last - 4} and {last}) found at B=1,32,256; rows {CAPACITY_ROWS + 10} and "
+        f"{FAR_ROW} past n_valid never won; ids and values equal to plain")
+
+    # the yuv mix on the card against the CPU on every (Y, U, V) triple
+    u_, v_, g_ = np.meshgrid(np.arange(256), np.arange(256), np.arange(16), indexing="ij")
+    triples = np.empty(u_.shape + (24,), np.uint8)
+    triples[..., :16] = g_[..., None] * 16 + np.arange(16)
+    triples[..., 16:20] = u_[..., None]
+    triples[..., 20:24] = v_[..., None]
+    triples = torch.from_numpy(triples.reshape(-1, 24))
+    mix_diff = (yuv.yuv420p4_to_rgbp4(triples.to(dev)).cpu().int()
+                - yuv.yuv420p4_to_rgbp4(triples).int()).abs()
+    check(int(mix_diff.max()) <= 1, f"yuv mix card vs CPU: max diff {int(mix_diff.max())}")
+    say(f"[kernels] yuv mix card vs CPU on all 2**24 (Y,U,V) triples: {int((mix_diff > 0).sum())}"
+        f" of {mix_diff.numel()} u8 values differ (by at most 1)")
 
     # ----------------------------------------------------------------- times
     # K3: the in-canvas faces are the kernel line's inputs; the path's own
@@ -406,18 +695,77 @@ def main() -> int:
     top1_lib_ms = time_ms(torch, lambda: library_top1(gal32), 20)
     top1_bound, top1_by = bound(CAPACITY_ROWS * 512 * 4 + path_b * 512 * 4 + path_b * 8,
                                 2 * path_b * CAPACITY_ROWS * 512, "float32")
+
+    # K2 at the yuv path's B = 32 (and 1, 256); library: torch._int_mm + mask + max
+    # (cuBLASLt int8 needs more than 16 rows)
+    def library_top1_int8(qq):
+        q_int, _ = match_kernel.quantize_queries(qq)
+        raw = torch._int_mm(q_int, g8.t())
+        return torch.where(valid_cols, raw, torch.iinfo(torch.int32).min).max(dim=1)
+
+    int8_times, int8_lib = {}, {}
+    for bq in (1, 32, 256):
+        qq = yfar[:bq].contiguous()
+        int8_times[bq] = time_ms(
+            torch, lambda: match_kernel.gallery_top1_int8(qq, g8, gs, CAPACITY_ROWS), 50)
+        if bq > 16:
+            int8_lib[bq] = time_ms(torch, lambda: library_top1_int8(qq), 20)
+    q8 = yfar[:path_b].contiguous()
+    int8_plain_ms = time_ms(
+        torch, lambda: match_kernel.gallery_top1_int8_plain(q8, g8, gs, CAPACITY_ROWS), 20)
+
+    def int8_bound(bq):
+        return bound(CAPACITY_ROWS * 512 + bq * 512 + bq * 8, 2 * bq * CAPACITY_ROWS * 512, "int8")
+
+    # K4 at the yuv path's shape (B = 8, 640x640, det_10g), bf16 and f32; library:
+    # the port's cuDNN stem (stem1 -> stem2 -> stem3 ConvBN + max_pool2d, channels_last,
+    # same dtype) -- four calls, not one
+    def stem_bound(x, width, dtype_name):
+        b_, h4, w4, _ = x.shape
+        macs = b_ * (2 * h4) * (2 * w4) * (27 * width + 9 * width * width + 18 * width * width)
+        esize = 4 if dtype_name == "float32" else 2
+        wbytes = (27 * width + 9 * width * width + 18 * width * width) * esize + 4 * 4 * width
+        return bound(x.numel() + b_ * h4 * w4 * 2 * width * esize + wbytes, 2 * macs, dtype_name)
+
+    bb = yengine.detector.backbone
+    x_nchw = ((stem_kernel.depth_to_space4(x48).float() - 127.5) / 128.0).to(yengine.dtype)
+    x_nchw = x_nchw.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+
+    def library_stem():
+        with torch.inference_mode():
+            return torch.nn.functional.max_pool2d(bb.stem3(bb.stem2(bb.stem1(x_nchw))), 3, 2, 1)
+
+    stem_times = {name: time_ms(torch, lambda: stem_kernel.fused_stem_s2d4(x48, stem_w[name], sw),
+                                20) for name in ("bfloat16", "float32")}
+    stem_plain_ms = time_ms(torch, lambda: stem_kernel.fused_stem_plain(x48, stem_w["bfloat16"], sw),
+                            5, 1)
+    stem_lib_ms = time_ms(torch, library_stem, 20)
+    stem_bnd, stem_by = stem_bound(x48, sw, "bfloat16")
+
     kernels = [
         {"name": "warp_rois", "route": "cuda", "source": WARP_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
-         "launches": launches["warp_rois"], "max_abs_err": max(warp_err, path_err),
-         "ms": warp_ms,
+         "launches": launches["warp_rois"] + y_launches["warp_rois"],
+         "max_abs_err": max(warp_err, path_err), "ms": warp_ms,
          "plain_ms": warp_plain_ms, "bound_ms": warp_bound, "bound_by": warp_by,
          "library_ms": None},
         {"name": "gallery_top1", "route": "cuda", "source": MATCH_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:79",
-         "launches": launches["gallery_top1"], "max_abs_err": top1_err["float32"],
+         "launches": launches["gallery_top1"] + y_launches["gallery_top1"],
+         "max_abs_err": top1_err["float32"],
          "ms": times[("float32", path_b)], "plain_ms": top1_plain_ms, "bound_ms": top1_bound,
          "bound_by": top1_by, "library_ms": top1_lib_ms},
+        {"name": "gallery_top1_int8", "route": "cuda", "source": MATCH_INT8_SRC,
+         "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:235",
+         "launches": y_launches["gallery_top1_int8"], "max_abs_err": 0.0,
+         "ms": int8_times[path_b], "plain_ms": int8_plain_ms,
+         "bound_ms": int8_bound(path_b)[0], "bound_by": int8_bound(path_b)[1],
+         "library_ms": int8_lib[path_b]},
+        {"name": "fused_stem", "route": "cuda", "source": STEM_SRC,
+         "replaces": "facerecognition_infrenceengine_tpu/ops/stem_pallas.py:258",
+         "launches": y_launches["fused_stem"], "max_abs_err": stem_err["bfloat16"],
+         "ms": stem_times["bfloat16"], "plain_ms": stem_plain_ms, "bound_ms": stem_bnd,
+         "bound_by": stem_by, "library_ms": stem_lib_ms},
     ]
     variants = []
     for (dtype_name, bq), ms in times.items():
@@ -426,15 +774,36 @@ def main() -> int:
                         2 * bq * CAPACITY_ROWS * 512, dtype_name)
         variants.append({"name": "gallery_top1", "dtype": dtype_name, "B": bq, "ms": ms,
                          "bound_ms": bnd, "bound_by": by})
+    for bq, ms in int8_times.items():
+        bnd, by = int8_bound(bq)
+        variants.append({"name": "gallery_top1_int8", "dtype": "int8", "B": bq, "ms": ms,
+                         "bound_ms": bnd, "bound_by": by, "library_ms": int8_lib.get(bq)})
+    for dtype_name, ms in stem_times.items():
+        bnd, by = stem_bound(x48, sw, dtype_name)
+        variants.append({"name": "fused_stem", "dtype": dtype_name, "B": FRAMES,
+                         "hw": [CANVAS, CANVAS], "stem_width": sw, "ms": ms, "bound_ms": bnd,
+                         "bound_by": by, "max_abs_err": stem_err[dtype_name]})
     say(f"[times] {card} | K3 M={m} in-canvas faces: {warp_ms:.4f} ms (plain "
         f"{warp_plain_ms:.3f} ms, bound {warp_bound * 1e3:.2f} us by {warp_by}); path ROIs "
         f"{path_warp_ms:.4f} ms (bound {path_warp_bound * 1e3:.2f} us) | K1 f32 B={path_b}: "
         f"{times[('float32', path_b)]:.4f} ms (plain {top1_plain_ms:.4f}, library "
         f"{top1_lib_ms:.4f}, bound {top1_bound * 1e3:.2f} us by {top1_by})")
+    say(f"[times] {card} | K2 B={path_b}: {int8_times[path_b]:.4f} ms (plain "
+        f"{int8_plain_ms:.4f}, library {int8_lib[path_b]:.4f}, bound "
+        f"{int8_bound(path_b)[0] * 1e3:.2f} us by {int8_bound(path_b)[1]}) | K4 bf16 B=8 "
+        f"640x640: {stem_times['bfloat16']:.4f} ms, f32 {stem_times['float32']:.4f} ms (plain "
+        f"{stem_plain_ms:.3f}, cuDNN stem {stem_lib_ms:.4f}, bound {stem_bnd * 1e3:.2f} us by "
+        f"{stem_by})")
     say(json.dumps({"variants": variants}))
     say(json.dumps({"path": {"card": card, "requests": REQUESTS, "frames_per_request": FRAMES,
                              "request_ms": request_ms, "faces_per_request": faces_per_request,
-                             "gallery_setup_ms": setup_ms, "peak_memory_mb": peak_mb}}))
+                             "gallery_setup_ms": setup_ms, "peak_memory_mb": peak_mb,
+                             "launches": launches}}))
+    say(json.dumps({"yuv_path": {"card": card, "requests": REQUESTS, "frames_per_request": FRAMES,
+                                 "request_ms": y_ms, "faces_per_request": y_faces,
+                                 "gallery_setup_ms": y_setup_ms, "peak_memory_mb": y_peak_mb,
+                                 "launches": y_launches, "int8_faces_compared": compared,
+                                 "request1_under_margin": under_margin}}))
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     faulthandler.cancel_dump_traceback_later()

@@ -22,7 +22,7 @@
 // query's full dot product in 9 shuffles.  Query tiles vary fastest in the
 // grid, so the blocks sharing a row chunk run together and read it through
 // L2.  Each block writes one (max, lowest index) per query.  Pass 2 merges
-// the chunks in row order with a strict '>' -- the lowest index again.
+// the chunks with one warp a query, by value then lowest index.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -166,23 +166,41 @@ top1_partial_kernel(const T* __restrict__ q, const T* __restrict__ g, int b,
   }
 }
 
-__global__ void top1_merge_kernel(const float* __restrict__ part_val,
-                                  const int* __restrict__ part_idx, int b,
-                                  int chunks, float* __restrict__ out_val,
-                                  int* __restrict__ out_idx) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= b) return;
+// Pass 2: one warp a query.  Lanes take chunks lane, lane + 32, ...; each
+// keeps (max, lowest index), then a butterfly over the warp merges them by
+// value, then index -- the lowest index wins a tie, as across chunks in row
+// order.  No chunk (n_valid = 0): -inf and index 0.
+constexpr int kMergeWarps = 4;
+
+__global__ void __launch_bounds__(kMergeWarps * 32)
+top1_merge_kernel(const float* __restrict__ part_val, const int* __restrict__ part_idx,
+                  int b, int chunks, float* __restrict__ out_val,
+                  int* __restrict__ out_idx) {
+  const int k = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (k >= b) return;  // whole warps leave together
   float bv = -INFINITY;
-  int bi = 0;
-  for (int c = 0; c < chunks; ++c) {  // chunks in row order: strict '>' keeps the lowest
+  int bi = 0x7fffffff;
+  for (int c = lane; c < chunks; c += 32) {  // rising chunks: strict '>' keeps the lowest
     const float v = part_val[static_cast<size_t>(c) * b + k];
     if (v > bv) {
       bv = v;
       bi = part_idx[static_cast<size_t>(c) * b + k];
     }
   }
-  out_val[k] = bv;
-  out_idx[k] = bi;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float v = __shfl_xor_sync(kFull, bv, off);
+    const int ix = __shfl_xor_sync(kFull, bi, off);
+    if (v > bv || (v == bv && ix < bi)) {
+      bv = v;
+      bi = ix;
+    }
+  }
+  if (lane == 0) {
+    out_val[k] = bv;
+    out_idx[k] = bi == 0x7fffffff ? 0 : bi;
+  }
 }
 
 }  // namespace
@@ -216,7 +234,7 @@ extern "C" int fre_gallery_top1(const void* q, const void* g, int is_bf16, int b
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  top1_merge_kernel<<<(b + 127) / 128, 128, 0, s>>>(part_val, part_idx, b, chunks,
-                                                    out_val, out_idx);
+  top1_merge_kernel<<<(b + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0, s>>>(
+      part_val, part_idx, b, chunks, out_val, out_idx);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,29 @@
 """The fused recognition pipeline: frames -> [B, max_faces] detections ->
 aligned crops -> L2-normalized embeddings.
 
-The torch form of ``facerecognition_infrenceengine_tpu/engine/pipeline.py``
-on the raw-RGB path: SCRFD forward -> sigmoid -> decode -> masked top-k ->
-greedy NMS into ``max_faces`` fixed slots, then Umeyama -> pyramid atlas ->
-ROI -> K3 warp -> IResNet -> L2 normalize, with every shape static per
-batch size.  ``detect_align_embed_flat`` packs the outputs into one
-[B, F, 528] tensor (boxes 4 | score 1 | kps 10 | valid 1 | emb 512).
+The torch form of ``facerecognition_infrenceengine_tpu/engine/pipeline.py``:
+SCRFD forward -> sigmoid -> decode -> masked top-k -> greedy NMS into
+``max_faces`` fixed slots, then Umeyama -> pyramid atlas -> ROI -> K3 warp
+-> IResNet -> L2 normalize, with every shape static per batch size.
+``detect_align_embed_flat`` packs the outputs into one [B, F, 528] tensor
+(boxes 4 | score 1 | kps 10 | valid 1 | emb 512).
+
+Two input contracts: raw RGB canvases [B, H, W, 3], and the streaming wire
+formats -- s2d4-packed RGB [B, H/4, W/4, 48] (``detect_align_embed_packed``)
+and packed yuv420 content rows [B, rows, W/4, 24]
+(``detect_align_embed_yuv420(_flat)``), which one constant mix
+(``ops/yuv.py``) turns into packed RGB.  ``EngineConfig.packed_stem_impl``
+picks the packed programs' stem: "unpack" undoes the s2d4 layout and runs
+the raw program; "pallas" runs K4, the fused stem kernel
+(``ops/stem_kernel.py``), on the packed frames, the backbone from its
+output, and warps from a packed pyramid atlas.  ``stem_kernel="on"`` runs
+K4 on the raw path too.
 
 Convolutions and the embedder's dense layer run through PyTorch (cuDNN /
-cuBLAS on the card), as the reference left them to XLA; the face warp runs
-the hand-written kernel K3.  On the card the f32 path stays true f32:
-``core.device.resolve_device`` switches TF32 off for cuDNN and cuBLAS.
+cuBLAS on the card), as the reference left them to XLA; the stem (K4), the
+face warp (K3) and the gallery top-1 (K1 / K2) are hand-written kernels.  On
+the card the f32 path stays true f32: ``core.device.resolve_device``
+switches TF32 off for cuDNN and cuBLAS.
 """
 
 from __future__ import annotations
@@ -21,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from ..core.config import EngineConfig
 from ..core.device import resolve_device
 from ..models import arcface, scrfd
@@ -30,7 +43,14 @@ from ..ops.anchors import all_anchor_centers
 from ..ops.boxes import distance2bbox, distance2kps
 from ..ops.matching import l2_normalize
 from ..ops.nms import nms_padded
-from ..ops.warp2pass import warp_faces_two_pass
+from ..ops.stem_kernel import depth_to_space4, fused_stem_s2d4, precompute_fused_stem
+from ..ops.stem_kernel import space_to_depth4
+from ..ops.warp2pass import warp_faces_two_pass, warp_faces_two_pass_packed
+from ..ops.yuv import yuv420p4_to_rgbp4
+
+# YUV black (Y = 0, U = V = 128) for canvas rows a yuv420 pack does not
+# carry: zero chroma would decode green
+_YUV_BLACK = (0,) * 16 + (128,) * 8
 
 
 def _stride_rows(height: int, width: int) -> np.ndarray:
@@ -81,6 +101,14 @@ class FaceEngine:
         detector = load_or_init(f"scrfd_{det_arch}", scrfd.SCRFD(scrfd.CONFIGS[det_arch]), seed)
         embedder = load_or_init(f"arcface_{rec_arch}", arcface.iresnet50() if rec_arch == "r50"
                                 else arcface.iresnet18(), seed + 1)
+        # K4's BN-folded stem weights, folded from the float32 module before
+        # the cast (the reference folds from its float32 variables)
+        self.stem_width = detector.cfg.stem_width
+        self.stem_weights = {k: v.to(self.device) for k, v in
+                             precompute_fused_stem(detector, self.dtype).items()}
+        # "auto" turns the raw-path stem kernel on only on a TPU in the
+        # reference: off here
+        self._stem_kernel_raw = self.cfg.stem_kernel == "on"
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
         self.detector = detector.to(self.device, self.dtype, memory_format=fmt)
         self.embedder = embedder.to(self.device, self.dtype, memory_format=fmt)
@@ -90,7 +118,25 @@ class FaceEngine:
 
     # -------------------------------------------------------------- programs
     def _detect_impl(self, frames_u8: torch.Tensor, det_threshold: float):
-        logits, bbox, kps = self.detector(scrfd.preprocess(frames_u8))
+        h, w = int(frames_u8.shape[1]), int(frames_u8.shape[2])
+        if (self._stem_kernel_raw and frames_u8.dtype == torch.uint8
+                and h % 4 == 0 and w % 4 == 0 and ((h // 4) % 16 == 0 or h // 4 <= 64)):
+            # K4 from raw frames: pack on the device, then the fused stem
+            stem_out = fused_stem_s2d4(space_to_depth4(frames_u8).contiguous(),
+                                       self.stem_weights, self.stem_width)
+            logits, bbox, kps = self.detector(None, stem_out=stem_out)
+        else:
+            logits, bbox, kps = self.detector(scrfd.preprocess(frames_u8))
+        return self._decode_nms(logits, bbox, kps, det_threshold)
+
+    def _detect_packed_impl(self, frames_p4: torch.Tensor, det_threshold: float):
+        """Detect from s2d4-packed u8 frames [B, H/4, W/4, 48]: "unpack" runs
+        the raw program on the unpacked frames; "pallas" runs K4 on the
+        packed frames and the backbone from its output."""
+        if self.cfg.packed_stem_impl == "unpack":
+            return self._detect_impl(depth_to_space4(frames_p4), det_threshold)
+        stem_out = fused_stem_s2d4(frames_p4, self.stem_weights, self.stem_width)
+        logits, bbox, kps = self.detector(None, stem_out=stem_out)
         return self._decode_nms(logits, bbox, kps, det_threshold)
 
     def _decode_nms(self, logits, bbox, kps, det_threshold: float):
@@ -130,6 +176,30 @@ class FaceEngine:
         emb = self._embed_impl(frames_u8, frame_idx, kps.reshape(b * f, 5, 2))
         return boxes, scores, kps, valid, emb.reshape(b, f, -1)
 
+    def _fused_packed_impl(self, frames_p4, det_threshold: float):
+        """Packed detect -> align -> embed.  "unpack" is the raw program on
+        the unpacked frames (outputs identical to ``detect_align_embed`` on
+        the same pixels); "pallas" warps from the packed pyramid atlas."""
+        if self.cfg.packed_stem_impl == "unpack":
+            return self._fused_impl(depth_to_space4(frames_p4), det_threshold)
+        boxes, scores, kps, valid = self._detect_packed_impl(frames_p4, det_threshold)
+        b, f = valid.shape
+        frame_idx = torch.arange(b, device=self.device).repeat_interleave(f)
+        crops = warp_faces_two_pass_packed(frames_p4, frame_idx, kps.reshape(b * f, 5, 2),
+                                           self.cfg.embed_size, dst=self._dst)
+        emb = l2_normalize(self.embedder(arcface.preprocess(crops)))
+        return boxes, scores, kps, valid, emb.reshape(b, f, -1)
+
+    def _fused_yuv_impl(self, frames_y24, det_threshold: float):
+        """The yuv420 transport: re-pad the content rows to the canvas with
+        YUV black, mix to packed RGB, then the packed program."""
+        dh = self.cfg.det_size[0] // 4
+        b, rows, w4, _ = frames_y24.shape
+        if rows < dh:
+            black = torch.tensor(_YUV_BLACK, dtype=torch.uint8, device=frames_y24.device)
+            frames_y24 = torch.cat([frames_y24, black.expand(b, dh - rows, w4, 24)], dim=1)
+        return self._fused_packed_impl(yuv420p4_to_rgbp4(frames_y24), det_threshold)
+
     @staticmethod
     def _flatten_fused_outputs(outs) -> torch.Tensor:
         """Pack the five fused outputs into one [B, F, 528] float32 tensor
@@ -142,6 +212,9 @@ class FaceEngine:
 
     def _fused_flat_impl(self, frames_u8, det_threshold: float):
         return self._flatten_fused_outputs(self._fused_impl(frames_u8, det_threshold))
+
+    def _fused_yuv_flat_impl(self, frames_y24, det_threshold: float):
+        return self._flatten_fused_outputs(self._fused_yuv_impl(frames_y24, det_threshold))
 
     # ------------------------------------------------------------- host API
     def _to_device(self, array) -> torch.Tensor:
@@ -192,3 +265,33 @@ class FaceEngine:
     def detect_align_embed_flat(self, frames_u8, det_threshold: float = 0.3) -> torch.Tensor:
         """Serving variant: one [B, F, 528] device tensor."""
         return self._fused_flat_impl(self._to_device(frames_u8), det_threshold)
+
+    def _has_packed_stem(self) -> bool:
+        """Whether the packed-input programs can run: "unpack" needs nothing
+        extra, "pallas" the fused-stem weights."""
+        return self.cfg.packed_stem_impl == "unpack" or bool(self.stem_weights)
+
+    @staticmethod
+    def pack_frames(frames_u8) -> np.ndarray:
+        """Host-side s2d4 pack: [B, H, W, 3] u8 -> [B, H/4, W/4, 48]."""
+        return np.stack([native.pack_s2d4(frame) for frame in np.asarray(frames_u8)])
+
+    @torch.inference_mode()
+    def detect_align_embed_packed(self, frames_p4_u8, det_threshold: float = 0.3):
+        """Fused program on s2d4-packed u8 frames [B, H/4, W/4, 48]: device
+        tensors (boxes, scores, kps, valid, emb)."""
+        return self._fused_packed_impl(self._to_device(frames_p4_u8), det_threshold)
+
+    @torch.inference_mode()
+    def detect_align_embed_yuv420(self, frames_y24_u8, det_threshold: float = 0.3):
+        """Fused program on packed-yuv420 frames [B, rows <= H/4, W/4, 24]
+        (the streaming wire format, 1.5 B/px): same outputs as
+        ``detect_align_embed`` up to the 4:2:0 chroma subsampling."""
+        return self._fused_yuv_impl(self._to_device(frames_y24_u8), det_threshold)
+
+    @torch.inference_mode()
+    def detect_align_embed_yuv420_flat(self, frames_y24_u8,
+                                       det_threshold: float = 0.3) -> torch.Tensor:
+        """Serving variant of ``detect_align_embed_yuv420``: one [B, F, 528]
+        device tensor."""
+        return self._fused_yuv_flat_impl(self._to_device(frames_y24_u8), det_threshold)

@@ -90,9 +90,15 @@ class ResNetV1e(nn.Module):
                 in_ch = planes
             self.stages.append(names)
 
-    def forward(self, x: torch.Tensor) -> list:
-        x = self.stem3(self.stem2(self.stem1(x)))
-        x = F.max_pool2d(x, 3, 2, 1)
+    def forward(self, x: torch.Tensor, stem_out: torch.Tensor | None = None) -> list:
+        """x [B, 3, H, W]; ``stem_out`` [B, 2*stem_width, H/4, W/4], when
+        given, is the stem's output (K4, ops/stem_kernel.py) and stage 1
+        starts from it: stem1-3 and the max-pool are skipped."""
+        if stem_out is not None:
+            x = stem_out
+        else:
+            x = self.stem3(self.stem2(self.stem1(x)))
+            x = F.max_pool2d(x, 3, 2, 1)
         feats = []
         for i, names in enumerate(self.stages):
             for name in names:
@@ -154,14 +160,20 @@ class SCRFD(nn.Module):
         for lvl in range(len(STRIDES)):
             self.register_parameter(f"bbox_scale_{lvl}", nn.Parameter(torch.ones(1)))
 
-    def forward(self, x: torch.Tensor):
-        """x: [B, H, W, 3] NHWC, preprocessed.
+    def forward(self, x: torch.Tensor | None, stem_out: torch.Tensor | None = None):
+        """x: [B, H, W, 3] NHWC, preprocessed.  ``stem_out``: the stem's
+        [B, H/4, W/4, 2*stem_width] NHWC output (K4); the backbone then
+        starts at stage 1 and ``x`` is not read (it may be None).
 
         Returns (scores [B, A, 1] logits, bbox [B, A, 4] stride units,
         kps [B, A, 10] stride units) in float32, rows ordered
         (stride asc, y, x, anchor)."""
-        x = x.permute(0, 3, 1, 2).to(self.bbox_scale_0.dtype)
-        feats = self.neck(self.backbone(x))
+        dtype = self.bbox_scale_0.dtype
+        if stem_out is not None:
+            # NHWC permuted to NCHW is already a channels_last view: no copy
+            feats = self.neck(self.backbone(None, stem_out.permute(0, 3, 1, 2).to(dtype)))
+        else:
+            feats = self.neck(self.backbone(x.permute(0, 3, 1, 2).to(dtype)))
         scores, bboxes, kpss = [], [], []
         for lvl, f in enumerate(feats):
             cls, bbox, kps = self.head(f)

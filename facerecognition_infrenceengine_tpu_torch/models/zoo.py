@@ -11,6 +11,12 @@ scale is 1.0 -- the 640x480 camera on a 640x640 canvas: the canvas is the
 RGB frame copied into the top-left of a zero canvas.  A frame that needs a
 resize, other modules and other packs raise ``NotImplementedError`` naming
 their ROADMAP item.
+
+With ``EngineConfig.stream_transport="yuv420"`` each frame is encoded on
+the host (``encode_frame``: 4:2:0 YUV in s2d4 layout, content rows only,
+1.5 B/px) and the batch runs ``detect_align_embed_yuv420_flat``; a batch
+mixing packs with raw frames decodes the packs on the host and takes the
+raw-RGB path.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import native
 from ..core.config import EngineConfig
-from ..engine.pipeline import FaceEngine, bucket
+from ..engine.pipeline import _YUV_BLACK, FaceEngine, bucket
+from ..ops.yuv import yuv420p4_to_rgb_host
 
 
 @dataclass
@@ -102,11 +110,68 @@ class FaceAnalysis:
             per_frame.append(faces[:max_num] if max_num else faces)
         return per_frame
 
+    # ------------------------------------------------------ yuv420 transport
+    @staticmethod
+    def _is_pack(frame) -> bool:
+        return getattr(frame, "ndim", 0) == 3 and frame.shape[-1] == 24
+
+    def _yuv_eligible(self, engine, frames) -> bool:
+        """The half-byte transport: configured, and every frame is a pack
+        already or fits the canvas at letterbox scale 1.0."""
+        if self.cfg.stream_transport != "yuv420" or not engine._has_packed_stem():
+            return False
+        dh, dw = self.cfg.det_size
+        return all(self._is_pack(f) or min(dh / f.shape[0], dw / f.shape[1]) == 1.0
+                   for f in frames)
+
+    def encode_frame(self, frame_bgr: np.ndarray) -> np.ndarray:
+        """One BGR camera frame -> its yuv420 s2d4 content rows
+        [ceil(h/4), W/4, 24]: the rows of ``native.letterbox_yuv420_s2d4``
+        that hold the frame (the letterbox puts it at the top-left; later
+        rows are padding the device re-creates), packed from a canvas of
+        those rows only.  Returns the frame unchanged for the rgb transport
+        or a frame that needs a resize."""
+        dh, dw = self.cfg.det_size
+        h, w = frame_bgr.shape[:2]
+        if self.cfg.stream_transport != "yuv420" or min(dh / h, dw / w) != 1.0:
+            return frame_bgr
+        canvas = np.zeros((min(-(-h // 4) * 4, dh), dw, 3), np.uint8)
+        canvas[:h, :w] = frame_bgr[..., ::-1]  # BGR -> RGB
+        return native.pack_yuv420_s2d4(canvas)
+
+    @staticmethod
+    def _stack_yuv(packs, dw: int) -> np.ndarray:
+        """Stack content-row packs into one [bucket(n), rows, dw/4, 24] batch;
+        the unfilled area is YUV black."""
+        rows = max(p.shape[0] for p in packs)
+        stacked = np.empty((bucket(len(packs)), rows, dw // 4, 24), np.uint8)
+        stacked[...] = np.asarray(_YUV_BLACK, np.uint8)
+        for i, p in enumerate(packs):
+            stacked[i, :p.shape[0]] = p
+        return stacked
+
+    def _get_batch_fused_yuv(self, engine, frames, max_num: int) -> list:
+        packs = [f if self._is_pack(f) else self.encode_frame(f) for f in frames]
+        stacked = self._stack_yuv(packs, self.cfg.det_size[1])
+        flat = engine.detect_align_embed_yuv420_flat(stacked, det_threshold=self.det_thresh)
+        return self._faces_from_fused_flat(flat, len(frames), max_num)
+
+    def _decode_mixed_packs(self, frames: list) -> list:
+        """Packs in a batch that cannot take the yuv path are decoded back to
+        BGR content rows on the host (the 4:2:0 chroma loss was paid at
+        encode), so the raw path sees plain frames."""
+        return [np.ascontiguousarray(yuv420p4_to_rgb_host(np.asarray(f))[..., ::-1])
+                if self._is_pack(f) else f for f in frames]
+
     def get_batch(self, frames: list, max_num: int = 0) -> list:
-        """Batched BGR frames -> per-frame lists of Face."""
+        """Batched BGR frames (or yuv420 packs from ``encode_frame``) ->
+        per-frame lists of Face."""
         if not frames:
             return []
         engine = self._ensure_engine()
+        if self._yuv_eligible(engine, frames):
+            return self._get_batch_fused_yuv(engine, frames, max_num)
+        frames = self._decode_mixed_packs(frames)
         stacked = np.zeros((bucket(len(frames)),) + tuple(self.cfg.det_size) + (3,), np.uint8)
         for i, frame in enumerate(frames):
             stacked[i] = letterbox(frame[..., ::-1], self.cfg.det_size)[0]  # BGR -> RGB

@@ -93,3 +93,85 @@ def test_top1_kernel_ties_go_to_lowest_index(cuda):
     q[:, 3] = 1.0
     _, i = match_kernel.gallery_top1(q, g, 70000)
     assert i.tolist() == [129, 129, 129]
+
+
+# ------------------------------------------------------------------- K4
+def _stem_weights(sw, dtype, device, seed=0):
+    """Random BN-folded stem weights in the kernel's layout (HWIO)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i, (cin, cout) in enumerate([(3, sw), (sw, sw), (sw, 2 * sw)]):
+        w = rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)
+        out[f"w{i + 1}"] = torch.from_numpy(w.astype(np.float32)).to(device, dtype).contiguous()
+        out[f"b{i + 1}"] = torch.from_numpy(
+            rng.normal(size=cout).astype(np.float32) * 0.2).to(device)
+    return out
+
+
+@pytest.mark.parametrize("b,h,w,sw", [(2, 640, 640, 28), (2, 128, 64, 12), (1, 36, 44, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_kernel_matches_plain(cuda, b, h, w, sw, dtype):
+    """f32: within 1e-4 of the largest output (summation order).  bf16: each
+    conv's output is cast to bf16 after f32 sums in another order, so a value
+    near a rounding boundary can land one bf16 step (2**-8 relative) away and
+    carry into the next conv: within 2**-6 of the largest output, and equal
+    on at least 90% of values."""
+    from facerecognition_infrenceengine_tpu_torch.ops import stem_kernel
+
+    rng = np.random.default_rng(h + w)
+    frames = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(cuda)
+    x48 = stem_kernel.space_to_depth4(frames).contiguous()
+    wts = _stem_weights(sw, dtype, cuda)
+    before = stem_kernel.fused_stem.launches
+    got = stem_kernel.fused_stem_s2d4(x48, wts, sw)
+    torch.cuda.synchronize()
+    assert stem_kernel.fused_stem.launches == before + 1
+    want = stem_kernel.fused_stem_plain(x48, wts, sw)
+    assert got.dtype == dtype and got.shape == want.shape == (b, h // 4, w // 4, 2 * sw)
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-4 * max(1.0, top), err
+    else:
+        assert err <= 2.0 ** -6 * top, (err, top)
+        assert (got == want).float().mean().item() >= 0.9
+    # the reference's padded x4 signature gives the same result
+    x4 = stem_kernel.pad_packed_u8(x48)
+    assert torch.equal(stem_kernel.fused_stem(x4, wts, w // 4, sw), got)
+
+
+# ------------------------------------------------------------------- K2
+@pytest.mark.parametrize("b,n,nv", [(1, 4096, 4000), (33, 3000, 2999), (256, 8192, 8192),
+                                    (5, 1024, 0), (32, 65536, 50000)])
+def test_top1_int8_kernel_matches_plain(cuda, b, n, nv):
+    """Integer arithmetic: ids and values equal to the plain version."""
+    rng = np.random.default_rng(2)
+    gq, gs = match_kernel.quantize_gallery(_unit(rng, n), headroom=1.25)
+    g = torch.from_numpy(gq).to(cuda)
+    q = torch.from_numpy(_unit(rng, b)).to(cuda)
+    if nv:
+        q[0] = g[nv - 1].float() * gs  # its own row, the last valid one
+    before = match_kernel.gallery_top1_int8.launches
+    v, i = match_kernel.gallery_top1_int8(q, g, gs, nv)
+    torch.cuda.synchronize()
+    assert match_kernel.gallery_top1_int8.launches == before + 1
+    pv, pi = match_kernel.gallery_top1_int8_plain(q, g, gs, nv)
+    assert torch.equal(i, pi) and torch.equal(v, pv)
+    if nv == 0:
+        assert torch.all(v == float("-inf")) and torch.all(i == 0)
+    else:
+        assert int(i[0]) == nv - 1
+
+
+def test_top1_int8_kernel_ties_and_rows_past_n_valid(cuda):
+    """The same identity in three 128-row chunks goes to the lowest row;
+    rows past n_valid that would win are never read."""
+    g = torch.zeros(70000, 512, dtype=torch.int8, device=cuda)
+    for row in (60001, 129, 33000):
+        g[row, 3] = 100
+    g[60002, 3] = 127  # past n_valid
+    q = torch.zeros(3, 512, device=cuda)
+    q[:, 3] = 1.0
+    v, i = match_kernel.gallery_top1_int8(q, g, 0.01, 60002)
+    pv, pi = match_kernel.gallery_top1_int8_plain(q, g, 0.01, 60002)
+    assert i.tolist() == pi.tolist() == [129, 129, 129] and torch.equal(v, pv)

@@ -99,8 +99,11 @@ def test_snapshot_match_matches_reference(k):
 
 
 def test_empty_snapshot_and_int8_refusal():
-    snap = gallery._CompanySnapshot([], {}, None, 512, 1024, device="cpu")
-    scores, ids = snap.match(np.ones((2, 512), np.float32))
-    assert ids == [[None], [None]] and np.all(scores == -1.0)
-    with pytest.raises(NotImplementedError):
-        gallery._CompanySnapshot([], {}, None, 512, 1024, dtype="int8", device="cpu")
+    """Empty snapshots answer None; the int8 dtype is ported now (K2), so
+    only a dtype the reference does not have is refused."""
+    for dtype in ("float32", "int8"):
+        snap = gallery._CompanySnapshot([], {}, None, 512, 1024, dtype=dtype, device="cpu")
+        scores, ids = snap.match(np.ones((2, 512), np.float32))
+        assert ids == [[None], [None]] and np.all(scores == -1.0)
+    with pytest.raises(ValueError):
+        gallery._CompanySnapshot([], {}, None, 512, 1024, dtype="float16", device="cpu")
