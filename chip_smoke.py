@@ -36,22 +36,31 @@ Phases, one flushed line each:
      embeddings of requests 2-3 as queries, then on a copy of that gallery
      with exact self-matches and ties planted in the last valid row chunk
      and across chunks, and rows past n_valid that would win if read; plus
-     n_valid = 0;
+     n_valid = 0; and request 1 of the yuv path against its f32 gallery:
+     every face finds its own id at >= 0.99;
    - K4 at B = 8, 640x640, sw = 28 on request 1's packed frames of the yuv
-     path, in bf16 and f32, and at 128x64 with sw = 12 (edge tiles);
+     path, in bf16 (tensor cores) and f32, at 128x64 with sw = 12 and at
+     36x44 with sw = 8 (edge tiles; the three stem widths of det_10g,
+     det_2.5g and det_500m);
    - K2 at B = 1, 32, 256 on the yuv path's int8 gallery with requests
      2-3's embeddings as queries, on a planted copy as for K1, and with
      n_valid = 0: ids and values exactly equal;
    - the yuv mix on the card against the CPU on every (Y, U, V) triple.
-6. times: CUDA events after warm-up; bounds from this run's inputs (K3's
-   bytes are the ROI pixels its taps read, not the whole ROI).
+6. times: `ms` is the wrapper call as the path makes it, CUDA events over
+   back-to-back calls after warm-up (host dispatch included where the host
+   is slower than the card); `kernel_device_ms` is the kernels' own device
+   time a call, from torch.profiler's device events over the same calls.
+   Bounds from this run's inputs (K3's bytes are the ROI pixels its taps
+   read, not the whole ROI).  K1's wrapper is also timed at B = 1 with its
+   scratch cache emptied before every call (`ms_uncached`): the per-call
+   allocations and library lookups the cache removes.
 7. the card line, then {"ok": true, "device": ...} as the last line.
 
     python3 chip_smoke.py --profile
 
 also traces one more request of each path with torch.profiler after the
-checks: wall time, the device's busy share and the kernels that take the
-most device time.
+checks: wall time, the device's busy share, the kernels that take the
+most device time, and the BatchNorm kernels' count and device time.
 
 Any failed check or exception exits non-zero before the last line.  With no
 CUDA device, or without the port's package beside it, it exits non-zero
@@ -126,6 +135,24 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """The device time a call of fn: the sum of torch.profiler's device
+    events (kernels, copies, memsets) over iters calls, after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        fail("torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
 def profile_request(torch, fn, label: str, top: int = 12) -> None:
     """Trace one call of fn (one request): wall ms, device-busy ms (the sum of
     the kernels' device time; one stream, so kernels do not overlap) and the
@@ -149,6 +176,11 @@ def profile_request(torch, fn, label: str, top: int = 12) -> None:
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}%")
     for us, count, key in rows[:top]:
         say(f"[profile] {label}:   {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    bn = [r for r in rows if "batch_norm" in r[2]]
+    say(f"[profile] {label}: BatchNorm kernels {sum(r[1] for r in bn)} launches, "
+        f"{sum(r[0] for r in bn) / 1e3:.3f} ms device")
+    for us, count, key in bn:
+        say(f"[profile] {label}:   bn {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
 def warp_footprint(torch, rois, mats, out_size: int = 112):
@@ -443,6 +475,16 @@ def main() -> int:
     say(f"[yuv] K2 on the path: {compared} faces' ids and scores equal to the plain int8 "
         f"version; request 1: {len(yown)}/{len(yown)} recognized, {own_ok} with the f32 id "
         f"(f32 lead > {INT8_MARGIN}), {under_margin} under that margin")
+    # request 1 of the yuv path against its own f32 gallery, through K1
+    emb1 = torch.from_numpy(np.stack([f.normed_embedding for fl in y_results[0][0]
+                                      for f in fl])).to(dev)
+    v1, i1 = match_kernel.gallery_top1(emb1, ymat32.float().contiguous(), CAPACITY_ROWS)
+    own_rows = torch.arange(len(yown), device=dev, dtype=torch.int32)
+    check(torch.equal(i1, own_rows) and float(v1.min()) >= 0.99,
+          f"yuv request 1 vs its f32 gallery: {int((i1 != own_rows).sum())} faces miss "
+          f"their own id, min score {float(v1.min())}")
+    say(f"[yuv] request 1 vs its f32 gallery through K1: {len(yown)}/{len(yown)} faces found "
+        f"their own id (min score {float(v1.min()):.6f})")
 
     # small engine on the yuv / pallas / int8 configuration: card vs CPU
     small_y = EngineConfig(det_size=(128, 128), max_faces=8, pre_nms_topk=64, dtype="float32",
@@ -584,6 +626,10 @@ def main() -> int:
                "bfloat16": {k: v.to(dev) for k, v in stem_kernel.precompute_fused_stem(
                    load_or_init("scrfd_det_2.5g", scrfd.SCRFD(scrfd.CONFIGS["det_2.5g"]), 0),
                    torch.bfloat16).items()}}
+    tiny_sw = scrfd.CONFIGS["det_500m"].stem_width
+    tiny_w = {name: {k: v.to(dev) for k, v in stem_kernel.precompute_fused_stem(
+        load_or_init("scrfd_det_500m", scrfd.SCRFD(scrfd.CONFIGS["det_500m"]), 0),
+        getattr(torch, name)).items()} for name in ("bfloat16", "float32")}
     stem_err = {}
 
     def compare_stem(x, wts, width, dtype_name, what):
@@ -607,8 +653,11 @@ def main() -> int:
         stem_err[dtype_name] = err
         err2, _ = compare_stem(x48[:, :32, :16].contiguous(), small_w[dtype_name], small_sw,
                                dtype_name, "B=8 128x64 sw=12")
+        err3, _ = compare_stem(x48[:, :9, :11].contiguous(), tiny_w[dtype_name], tiny_sw,
+                               dtype_name, "B=8 36x44 sw=8")
         say(f"[kernels] K4 {dtype_name}: B=8 640x640 sw={sw} on request 1's packed frames max "
-            f"abs err {err:.3e} (outputs up to {top:.3f}); 128x64 sw={small_sw} {err2:.3e}")
+            f"abs err {err:.3e} (outputs up to {top:.3f}); 128x64 sw={small_sw} {err2:.3e}; "
+            f"36x44 sw={tiny_sw} {err3:.3e}")
 
     # K2 on the yuv path's int8 gallery, queried with requests 2-3's embeddings
     g8 = ysnap.device_matrix
@@ -670,6 +719,7 @@ def main() -> int:
     # pixels the taps read, the affines, the crops written.
     m, _, _, c = rois.shape
     warp_ms = time_ms(torch, lambda: warp_kernel.warp_rois(rois, mats), 50)
+    warp_dev_ms = device_ms(torch, lambda: warp_kernel.warp_rois(rois, mats))
     warp_plain_ms = time_ms(torch, lambda: warp_kernel.warp_rois_plain(rois, mats), 3, 1)
     warp_ops = m * 112 * 112 * (30 + 10 * c)
     warp_bound, warp_by = bound(4 * (face_px * c + m * 6 + m * 112 * 112 * c), warp_ops,
@@ -681,18 +731,28 @@ def main() -> int:
     q = far[:path_b].contiguous()
     valid_cols = torch.arange(gal32.shape[0], device=dev) < CAPACITY_ROWS
 
-    def library_top1(gal):
-        s = torch.where(valid_cols, q.to(gal.dtype) @ gal.T, float("-inf"))
+    def library_top1(gal, qq):
+        s = torch.where(valid_cols, qq.to(gal.dtype) @ gal.T, float("-inf"))
         return torch.topk(s, 1)
 
-    times = {}
+    times, dev_times, lib_times = {}, {}, {}
     for dtype_name, gal in (("float32", gal32), ("bfloat16", gal16)):
         for bq in (1, 32, 256):
             qq = far[:bq].contiguous()
             times[(dtype_name, bq)] = time_ms(
                 torch, lambda: match_kernel.gallery_top1(qq, gal, CAPACITY_ROWS), 50)
+            dev_times[(dtype_name, bq)] = device_ms(
+                torch, lambda: match_kernel.gallery_top1(qq, gal, CAPACITY_ROWS))
+            lib_times[(dtype_name, bq)] = time_ms(torch, lambda: library_top1(gal, qq), 20)
+
+    def top1_uncached():  # the wrapper as it was before its scratch cache
+        match_kernel._scratch.clear()
+        match_kernel._entries.clear()
+        return match_kernel.gallery_top1(far[:1], gal32, CAPACITY_ROWS)
+
+    top1_uncached_ms = time_ms(torch, top1_uncached, 50)
     top1_plain_ms = time_ms(torch, lambda: match_kernel.gallery_top1_plain(q, gal32, CAPACITY_ROWS), 20)
-    top1_lib_ms = time_ms(torch, lambda: library_top1(gal32), 20)
+    top1_lib_ms = lib_times[("float32", path_b)]
     top1_bound, top1_by = bound(CAPACITY_ROWS * 512 * 4 + path_b * 512 * 4 + path_b * 8,
                                 2 * path_b * CAPACITY_ROWS * 512, "float32")
 
@@ -703,11 +763,13 @@ def main() -> int:
         raw = torch._int_mm(q_int, g8.t())
         return torch.where(valid_cols, raw, torch.iinfo(torch.int32).min).max(dim=1)
 
-    int8_times, int8_lib = {}, {}
+    int8_times, int8_dev, int8_lib = {}, {}, {}
     for bq in (1, 32, 256):
         qq = yfar[:bq].contiguous()
         int8_times[bq] = time_ms(
             torch, lambda: match_kernel.gallery_top1_int8(qq, g8, gs, CAPACITY_ROWS), 50)
+        int8_dev[bq] = device_ms(
+            torch, lambda: match_kernel.gallery_top1_int8(qq, g8, gs, CAPACITY_ROWS))
         if bq > 16:
             int8_lib[bq] = time_ms(torch, lambda: library_top1_int8(qq), 20)
     q8 = yfar[:path_b].contiguous()
@@ -737,6 +799,8 @@ def main() -> int:
 
     stem_times = {name: time_ms(torch, lambda: stem_kernel.fused_stem_s2d4(x48, stem_w[name], sw),
                                 20) for name in ("bfloat16", "float32")}
+    stem_dev = {name: device_ms(torch, lambda: stem_kernel.fused_stem_s2d4(x48, stem_w[name], sw),
+                                10) for name in ("bfloat16", "float32")}
     stem_plain_ms = time_ms(torch, lambda: stem_kernel.fused_stem_plain(x48, stem_w["bfloat16"], sw),
                             5, 1)
     stem_lib_ms = time_ms(torch, library_stem, 20)
@@ -747,24 +811,29 @@ def main() -> int:
          "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
          "launches": launches["warp_rois"] + y_launches["warp_rois"],
          "max_abs_err": max(warp_err, path_err), "ms": warp_ms,
-         "plain_ms": warp_plain_ms, "bound_ms": warp_bound, "bound_by": warp_by,
+         "kernel_device_ms": warp_dev_ms, "plain_ms": warp_plain_ms, "bound_ms": warp_bound,
+         "bound_by": warp_by,
          "library_ms": None},
         {"name": "gallery_top1", "route": "cuda", "source": MATCH_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:79",
          "launches": launches["gallery_top1"] + y_launches["gallery_top1"],
          "max_abs_err": top1_err["float32"],
-         "ms": times[("float32", path_b)], "plain_ms": top1_plain_ms, "bound_ms": top1_bound,
-         "bound_by": top1_by, "library_ms": top1_lib_ms},
+         "ms": times[("float32", path_b)], "kernel_device_ms": dev_times[("float32", path_b)],
+         "plain_ms": top1_plain_ms, "bound_ms": top1_bound,
+         "bound_by": top1_by, "library_ms": top1_lib_ms,
+         "library_ms_bf16": lib_times[("bfloat16", path_b)]},
         {"name": "gallery_top1_int8", "route": "cuda", "source": MATCH_INT8_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:235",
          "launches": y_launches["gallery_top1_int8"], "max_abs_err": 0.0,
-         "ms": int8_times[path_b], "plain_ms": int8_plain_ms,
+         "ms": int8_times[path_b], "kernel_device_ms": int8_dev[path_b],
+         "plain_ms": int8_plain_ms,
          "bound_ms": int8_bound(path_b)[0], "bound_by": int8_bound(path_b)[1],
          "library_ms": int8_lib[path_b]},
         {"name": "fused_stem", "route": "cuda", "source": STEM_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/stem_pallas.py:258",
          "launches": y_launches["fused_stem"], "max_abs_err": stem_err["bfloat16"],
-         "ms": stem_times["bfloat16"], "plain_ms": stem_plain_ms, "bound_ms": stem_bnd,
+         "ms": stem_times["bfloat16"], "kernel_device_ms": stem_dev["bfloat16"],
+         "plain_ms": stem_plain_ms, "bound_ms": stem_bnd,
          "bound_by": stem_by, "library_ms": stem_lib_ms},
     ]
     variants = []
@@ -773,25 +842,35 @@ def main() -> int:
         bnd, by = bound(CAPACITY_ROWS * 512 * esize + bq * 512 * esize + bq * 8,
                         2 * bq * CAPACITY_ROWS * 512, dtype_name)
         variants.append({"name": "gallery_top1", "dtype": dtype_name, "B": bq, "ms": ms,
-                         "bound_ms": bnd, "bound_by": by})
+                         "kernel_device_ms": dev_times[(dtype_name, bq)], "bound_ms": bnd,
+                         "bound_by": by, "library_ms": lib_times[(dtype_name, bq)]})
+        if (dtype_name, bq) == ("float32", 1):
+            variants[-1]["ms_uncached"] = top1_uncached_ms
     for bq, ms in int8_times.items():
         bnd, by = int8_bound(bq)
         variants.append({"name": "gallery_top1_int8", "dtype": "int8", "B": bq, "ms": ms,
-                         "bound_ms": bnd, "bound_by": by, "library_ms": int8_lib.get(bq)})
+                         "kernel_device_ms": int8_dev[bq], "bound_ms": bnd, "bound_by": by,
+                         "library_ms": int8_lib.get(bq)})
     for dtype_name, ms in stem_times.items():
         bnd, by = stem_bound(x48, sw, dtype_name)
         variants.append({"name": "fused_stem", "dtype": dtype_name, "B": FRAMES,
-                         "hw": [CANVAS, CANVAS], "stem_width": sw, "ms": ms, "bound_ms": bnd,
+                         "hw": [CANVAS, CANVAS], "stem_width": sw, "ms": ms,
+                         "kernel_device_ms": stem_dev[dtype_name], "bound_ms": bnd,
                          "bound_by": by, "max_abs_err": stem_err[dtype_name]})
     say(f"[times] {card} | K3 M={m} in-canvas faces: {warp_ms:.4f} ms (plain "
         f"{warp_plain_ms:.3f} ms, bound {warp_bound * 1e3:.2f} us by {warp_by}); path ROIs "
         f"{path_warp_ms:.4f} ms (bound {path_warp_bound * 1e3:.2f} us) | K1 f32 B={path_b}: "
-        f"{times[('float32', path_b)]:.4f} ms (plain {top1_plain_ms:.4f}, library "
-        f"{top1_lib_ms:.4f}, bound {top1_bound * 1e3:.2f} us by {top1_by})")
+        f"{times[('float32', path_b)]:.4f} ms, device {dev_times[('float32', path_b)]:.4f} ms "
+        f"(plain {top1_plain_ms:.4f}, library {top1_lib_ms:.4f}, bound "
+        f"{top1_bound * 1e3:.2f} us by {top1_by}); bf16 {times[('bfloat16', path_b)]:.4f} ms, "
+        f"device {dev_times[('bfloat16', path_b)]:.4f} ms (library "
+        f"{lib_times[('bfloat16', path_b)]:.4f}); B=1 f32 {times[('float32', 1)]:.4f} ms, "
+        f"uncached {top1_uncached_ms:.4f} ms")
     say(f"[times] {card} | K2 B={path_b}: {int8_times[path_b]:.4f} ms (plain "
         f"{int8_plain_ms:.4f}, library {int8_lib[path_b]:.4f}, bound "
         f"{int8_bound(path_b)[0] * 1e3:.2f} us by {int8_bound(path_b)[1]}) | K4 bf16 B=8 "
-        f"640x640: {stem_times['bfloat16']:.4f} ms, f32 {stem_times['float32']:.4f} ms (plain "
+        f"640x640: {stem_times['bfloat16']:.4f} ms (device {stem_dev['bfloat16']:.4f}), f32 "
+        f"{stem_times['float32']:.4f} ms (plain "
         f"{stem_plain_ms:.3f}, cuDNN stem {stem_lib_ms:.4f}, bound {stem_bnd * 1e3:.2f} us by "
         f"{stem_by})")
     say(json.dumps({"variants": variants}))

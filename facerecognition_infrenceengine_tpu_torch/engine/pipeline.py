@@ -37,6 +37,7 @@ from .. import native
 from ..core.config import EngineConfig
 from ..core.device import resolve_device
 from ..models import arcface, scrfd
+from ..models.layers import cast_keep_bn_f32
 from ..models.weights import load_or_init
 from ..ops.align import ARCFACE_DST
 from ..ops.anchors import all_anchor_centers
@@ -109,9 +110,10 @@ class FaceEngine:
         # "auto" turns the raw-path stem kernel on only on a TPU in the
         # reference: off here
         self._stem_kernel_raw = self.cfg.stem_kernel == "on"
+        # BatchNorm stays float32 in a bf16 engine, as the reference's
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
-        self.detector = detector.to(self.device, self.dtype, memory_format=fmt)
-        self.embedder = embedder.to(self.device, self.dtype, memory_format=fmt)
+        self.detector = cast_keep_bn_f32(detector, self.device, self.dtype, fmt)
+        self.embedder = cast_keep_bn_f32(embedder, self.device, self.dtype, fmt)
         self._centers = all_anchor_centers(h, w, device=self.device)
         self._strides = torch.from_numpy(_stride_rows(h, w)).to(self.device)
         self._dst = torch.from_numpy(ARCFACE_DST * (self.cfg.embed_size / 112.0)).to(self.device)

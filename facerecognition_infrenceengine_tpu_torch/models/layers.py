@@ -14,6 +14,29 @@ from torch import nn
 BN_EPS = 1e-5
 
 
+def cast_keep_bn_f32(module: nn.Module, device, dtype: torch.dtype,
+                     memory_format=torch.contiguous_format) -> nn.Module:
+    """``module.to(device, dtype, memory_format)`` except that every
+    BatchNorm keeps its weight, bias and running statistics in float32.
+
+    The reference's ``nn.BatchNorm(dtype=bf16)`` holds f32 parameters and
+    statistics, computes in f32 and rounds once to the engine dtype;
+    ``F.batch_norm`` with a bf16 input and f32 parameters does the same in
+    one pass.  Casting the BN buffers to bf16 first would round the
+    statistics before they are used.  Returns ``module``."""
+    module.to(device, memory_format=memory_format)
+    for sub in module.modules():
+        if isinstance(sub, nn.modules.batchnorm._BatchNorm):
+            continue
+        for p in sub.parameters(recurse=False):
+            if p.is_floating_point():
+                p.data = p.data.to(dtype)
+        for name, b in sub.named_buffers(recurse=False):
+            if b.is_floating_point():
+                setattr(sub, name, b.to(dtype))
+    return module
+
+
 class ConvBN(nn.Module):
     """Conv (bias-free) -> BatchNorm (-> ReLU)."""
 

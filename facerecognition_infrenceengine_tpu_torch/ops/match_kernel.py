@@ -4,8 +4,15 @@ an f32 / bf16 gallery (K1) or an int8 gallery with one global scale (K2).
 Replaces ``facerecognition_infrenceengine_tpu/ops/match_pallas.py::
 gallery_top1``.  The CUDA kernel is ``csrc/match.cu``; its header states
 the bound on the H100 (gallery bytes at small batch, f32 FLOPs at large
-batch) and the design (row chunks across blocks, queries in registers, a
-second pass that merges chunks by the lowest-index rule).
+batch) and the design (a persistent grid that reads the gallery once for
+every 32 queries staged in shared memory; f32 on the FP32 cores with
+gallery rows in registers, bf16 on the tensor cores; blocks fold their
+best rows into one 64-bit key a query, ordered by value then the lowest
+index, in the same launch).
+
+The wrappers allocate only their outputs: the kernels' scratch is made
+once per (device, stream, batch size) and reused, which is safe because
+calls on one stream run in order; the C entries are looked up once.
 
 ``gallery_top1`` launches the kernel for CUDA tensors and runs the plain
 version, ``gallery_top1_plain``, for CPU tensors.  ``gallery_top1.launches``
@@ -22,6 +29,15 @@ from ..kernels import build
 
 DIM = 512
 _DTYPES = (torch.float32, torch.bfloat16)
+_scratch: dict = {}  # (kernel, device, stream, b[, chunks]) -> scratch buffers
+_entries: dict = {}  # kernel -> its C entry (and K2's rows a chunk)
+
+
+def _cached_scratch(key, make):
+    bufs = _scratch.get(key)
+    if bufs is None:
+        bufs = _scratch[key] = make()
+    return bufs
 
 
 def gallery_top1_plain(queries: torch.Tensor, gallery: torch.Tensor, n_valid: int):
@@ -41,7 +57,7 @@ def gallery_top1_plain(queries: torch.Tensor, gallery: torch.Tensor, n_valid: in
 def gallery_top1(queries: torch.Tensor, gallery: torch.Tensor, n_valid: int):
     """Top-1 cosine match in one pass over the gallery.
 
-    queries: [B, 512] normalized, cast to the gallery's dtype.
+    queries: [B, 512] normalized, rounded to the gallery's dtype.
     gallery: [N, 512] float32 or bfloat16, contiguous; rows [n_valid:] are
       padding and are never read.
     Returns (values [B] float32, indices [B] int32).
@@ -58,30 +74,32 @@ def gallery_top1(queries: torch.Tensor, gallery: torch.Tensor, n_valid: int):
         raise TypeError(f"gallery dtype {gallery.dtype} not in {_DTYPES}")
     if gallery.shape[1] != DIM:
         raise ValueError(f"kernel takes {DIM}-d embeddings, got {gallery.shape[1]}")
-    if not gallery.is_contiguous():
-        raise ValueError("gallery must be contiguous")
-    q = queries.to(gallery.dtype).contiguous()
+    if not gallery.is_contiguous() or gallery.data_ptr() % 16:
+        raise ValueError("gallery must be contiguous and 16-byte aligned")
+    # f32 queries either way: the kernel rounds them to the gallery's dtype
+    # as it stages them (the plain version's cast), so no cast runs here
+    q = queries.float().contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
     b = q.shape[0]
     n_rows = max(0, min(n_valid, gallery.shape[0]))
-    lib = build.lib()
-    rows_per_block = lib.fre_gallery_top1_rows_per_block()
-    chunks = -(-n_rows // rows_per_block)
-    if chunks > 65535:
-        raise ValueError(f"gallery of {n_rows} rows exceeds the kernel's grid")
     dev = gallery.device
+    fn = _entries.get("top1")
+    if fn is None:
+        fn = _entries["top1"] = build.lib().fre_gallery_top1
     vals = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return vals, idx
-    part_val = torch.empty(max(chunks, 1) * b, dtype=torch.float32, device=dev)
-    part_idx = torch.empty(max(chunks, 1) * b, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fre_gallery_top1(q.data_ptr(), gallery.data_ptr(),
-                               int(gallery.dtype == torch.bfloat16), b, n_rows, chunks,
-                               part_val.data_ptr(), part_idx.data_ptr(),
-                               vals.data_ptr(), idx.data_ptr(), stream)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)  # cheaper than current_stream()
+    # a 64-bit best key a query and a done-counter a 32-query tile, both
+    # zero between calls
+    keys, done = _cached_scratch(
+        ("top1", dev, stream, b),
+        lambda: (torch.zeros(b, dtype=torch.int64, device=dev),
+                 torch.zeros(-(-b // 32), dtype=torch.int32, device=dev)))
+    err = fn(q.data_ptr(), gallery.data_ptr(), int(gallery.dtype == torch.bfloat16), b, n_rows,
+             keys.data_ptr(), done.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream)
     build.check(err, "fre_gallery_top1")
     gallery_top1.launches += 1
     return vals, idx
@@ -176,25 +194,30 @@ def gallery_top1_int8(queries: torch.Tensor, gallery_q: torch.Tensor, gallery_sc
     q = queries.float().contiguous()
     b = q.shape[0]
     n_rows = max(0, min(n_valid, gallery_q.shape[0]))
-    lib = build.lib()
-    rows_per_block = lib.fre_gallery_top1_int8_rows_per_block()
+    dev = gallery_q.device
+    entry = _entries.get("top1_int8")
+    if entry is None:
+        lib = build.lib()
+        entry = _entries["top1_int8"] = (lib.fre_gallery_top1_int8,
+                                         lib.fre_gallery_top1_int8_rows_per_block())
+    fn, rows_per_block = entry
     chunks = -(-n_rows // rows_per_block)
     if chunks > 65535:
         raise ValueError(f"gallery of {n_rows} rows exceeds the kernel's grid")
-    dev = gallery_q.device
     vals = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return vals, idx
-    q_int = torch.empty((b, DIM), dtype=torch.int8, device=dev)
-    qs = torch.empty(1, dtype=torch.float32, device=dev)
-    part_val = torch.empty(max(chunks, 1) * b, dtype=torch.int32, device=dev)
-    part_idx = torch.empty(max(chunks, 1) * b, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.fre_gallery_top1_int8(q.data_ptr(), gallery_q.data_ptr(), float(gallery_scale),
-                                    b, n_rows, chunks, q_int.data_ptr(), qs.data_ptr(),
-                                    part_val.data_ptr(), part_idx.data_ptr(), vals.data_ptr(),
-                                    idx.data_ptr(), stream)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)  # cheaper than current_stream()
+    q_int, qs, part_val, part_idx = _cached_scratch(
+        ("top1_int8", dev, stream, b, chunks),
+        lambda: (torch.empty((b, DIM), dtype=torch.int8, device=dev),
+                 torch.empty(1, dtype=torch.float32, device=dev),
+                 torch.empty(max(chunks, 1) * b, dtype=torch.int32, device=dev),
+                 torch.empty(max(chunks, 1) * b, dtype=torch.int32, device=dev)))
+    err = fn(q.data_ptr(), gallery_q.data_ptr(), float(gallery_scale), b, n_rows, chunks,
+             q_int.data_ptr(), qs.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+             vals.data_ptr(), idx.data_ptr(), stream)
     build.check(err, "fre_gallery_top1_int8")
     gallery_top1_int8.launches += 1
     return vals, idx

@@ -3,9 +3,10 @@
 
 Replaces ``facerecognition_infrenceengine_tpu/ops/stem_pallas.py::
 fused_stem``.  The CUDA kernel is ``csrc/stem.cu``; its header states the
-bound on the H100 (operations) and the design (a direct convolution per
-8x8 tile of pooled outputs in shared memory, not the reference's
-phase-packed form).
+bound on the H100 (operations) and the design: per 8x8 tile of pooled
+outputs in shared memory, an implicit GEMM on the tensor cores in bf16
+and a direct convolution on the FP32 cores in f32, not the reference's
+phase-packed form.
 
 Layouts are the reference's: ``space_to_depth4`` packs [B, H, W, C] into
 [B, H/4, W/4, 16C] with channel (p*4 + q)*C + c holding raw pixel
@@ -17,9 +18,12 @@ is a TPU tiling artifact that would triple the bytes read.
 
 ``precompute_fused_stem`` folds BN into the 3x3 weights (f32, eps 1e-5,
 the reference's order) and casts them to the engine dtype; they stay in
-HWIO, the layout the kernel reads.  ``fused_stem_s2d4`` launches the kernel
-for CUDA tensors and runs the plain version, ``fused_stem_plain``, for CPU
-tensors.  ``fused_stem.launches`` counts kernel launches.
+HWIO, the layout the f32 kernel and the plain version read.  In bf16 it
+also returns ``pack_stem_fragments``' copy of them, zero-padded and in the
+order the tensor-core kernel's MMA fragments read.  ``fused_stem_s2d4``
+launches the kernel for CUDA tensors and runs the plain version,
+``fused_stem_plain``, for CPU tensors.  ``fused_stem.launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -77,7 +81,9 @@ def precompute_fused_stem(detector, dtype=torch.bfloat16) -> dict:
 
     Returns {"w1": [3, 3, 3, sw], "w2": [3, 3, sw, sw], "w3": [3, 3, sw,
     2sw]} in ``dtype`` (HWIO) and {"b1", "b2", "b3"} float32, on the
-    module's device.  The fold is the reference's, in f32:
+    module's device; in bf16 (stem width <= 32) also {"f1", "f2", "f3"}, the
+    same weights in the tensor-core kernel's fragment order
+    (:func:`pack_stem_fragments`).  The fold is the reference's, in f32:
     inv = scale / sqrt(var + eps), bias = beta - mean * inv, w = w * inv.
     It runs in numpy, whose f32 sqrt is correctly rounded as XLA's is (torch's
     vectorized CPU sqrt can differ in the last bit)."""
@@ -94,6 +100,59 @@ def precompute_fused_stem(detector, dtype=torch.bfloat16) -> dict:
         dev = layer.Conv_0.weight.device
         out[f"w{i + 1}"] = torch.from_numpy(np.ascontiguousarray(w * inv)).to(dev, dtype)
         out[f"b{i + 1}"] = torch.from_numpy(bias.astype(np.float32)).to(dev)
+    sw = backbone.stem1.Conv_0.out_channels
+    if dtype == torch.bfloat16 and sw <= 32:
+        out.update(pack_stem_fragments(out, sw))
+    return out
+
+
+def stem_channel_pad(stem_width: int) -> int:
+    """CP, the channels a conv2/conv3 input pixel holds in the bf16 kernel:
+    the stem width padded to 16 or 32 (one or two MMA k-steps a tap)."""
+    if stem_width <= 0 or stem_width % 4 or stem_width > 32:
+        raise ValueError(f"the bf16 kernel takes a stem width that is a multiple of 4 "
+                         f"and at most 32, got {stem_width}")
+    return 16 if stem_width <= 16 else 32
+
+
+def _b_fragments(bmat: torch.Tensor) -> torch.Tensor:
+    """[k-steps, 16, N] B matrices -> [k-steps, N/8, 32, 4]: lane l of
+    mma.m16n8k16's B fragment for n-tile t holds B[k][8t + l/4] for
+    k = 2(l%4), 2(l%4)+1, 2(l%4)+8, 2(l%4)+9."""
+    ks, _, n = bmat.shape
+    lane = torch.arange(32)[:, None]
+    e = torch.arange(4)[None, :]
+    k = 2 * (lane % 4) + e % 2 + 8 * (e // 2)
+    col = (lane // 4).expand(32, 4)
+    return bmat.reshape(ks, 16, n // 8, 8).permute(0, 2, 1, 3)[:, :, k, col]
+
+
+@torch.no_grad()
+def pack_stem_fragments(weights: dict, stem_width: int) -> dict:
+    """The HWIO bf16 weights of :func:`precompute_fused_stem` in the order
+    the tensor-core kernel reads them, zero-padded (``csrc/stem.cu``):
+
+    - f1 [3, CP/8, 32, 4]: conv1, one k-step per kernel row ky, k = 4j + c
+      for raw column 2ox + j (j < 4; j = 3 is zero) and channel c (c = 3 is
+      zero); N = CP output channels (those past sw zero);
+    - f2 [9*CP/16, CP/8, 32, 4]: conv2, k-step tap*(CP/16) + h, k the input
+      channel 16h + k (zero past sw), N = CP;
+    - f3 [9*CP/16, 2sw/8, 32, 4]: conv3, the same K, N = 2sw.
+    """
+    sw = int(stem_width)
+    cp = stem_channel_pad(sw)
+    w1, w2, w3 = (weights[f"w{i}"].float() for i in (1, 2, 3))
+    dev = w1.device
+    b1 = torch.zeros(3, 4, 4, cp, device=dev)  # [ky, j, c, n]
+    b1[:, :3, :3, :sw] = w1
+    b2 = torch.zeros(3, 3, cp, cp, device=dev)
+    b2[:, :, :sw, :sw] = w2
+    b3 = torch.zeros(3, 3, cp, 2 * sw, device=dev)
+    b3[:, :, :sw, :] = w3
+    out = {}
+    for key, bmat in (("f1", b1.reshape(3, 16, cp)), ("f2", b2.reshape(9 * cp // 16, 16, cp)),
+                      ("f3", b3.reshape(9 * cp // 16, 16, 2 * sw))):
+        out[key] = _b_fragments(bmat.cpu()).to(dev, torch.bfloat16).contiguous()
     return out
 
 
@@ -166,17 +225,34 @@ def fused_stem_s2d4(x48: torch.Tensor, weights: dict, stem_width: int) -> torch.
     if sw % 4:
         raise ValueError(f"the kernel takes a stem width that is a multiple of 4, got {sw}")
     x48 = x48.contiguous()
+    if x48.data_ptr() % 16:
+        x48 = x48.clone()
     b, h4, w4, _ = x48.shape
     out = torch.empty((b, h4, w4, 2 * sw), dtype=dtype, device=x48.device)
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(x48.device).cuda_stream
-    err = build.lib().fre_fused_stem(
-        x48.data_ptr(), weights["w1"].data_ptr(), weights["b1"].data_ptr(),
-        weights["w2"].data_ptr(), weights["b2"].data_ptr(), weights["w3"].data_ptr(),
-        weights["b3"].data_ptr(), out.data_ptr(), int(dtype == torch.bfloat16), b, h4, w4,
-        sw, stream)
-    build.check(err, "fre_fused_stem")
+    if dtype == torch.bfloat16:
+        frags = weights if "f1" in weights else pack_stem_fragments(weights, sw)
+        cp = stem_channel_pad(sw)
+        for key, shape in (("f1", (3, cp // 8, 32, 4)), ("f2", (9 * cp // 16, cp // 8, 32, 4)),
+                           ("f3", (9 * cp // 16, sw // 4, 32, 4))):
+            t = frags[key]
+            if (tuple(t.shape) != shape or t.dtype != dtype or t.device != x48.device
+                    or not t.is_contiguous() or t.data_ptr() % 16):
+                raise ValueError(f"stem fragments {key}: {tuple(t.shape)} {t.dtype}, want "
+                                 f"{shape} bf16 contiguous on {x48.device}")
+        err = build.lib().fre_fused_stem_bf16(
+            x48.data_ptr(), frags["f1"].data_ptr(), weights["b1"].data_ptr(),
+            frags["f2"].data_ptr(), weights["b2"].data_ptr(), frags["f3"].data_ptr(),
+            weights["b3"].data_ptr(), out.data_ptr(), b, h4, w4, sw, stream)
+        build.check(err, "fre_fused_stem_bf16")
+    else:
+        err = build.lib().fre_fused_stem(
+            x48.data_ptr(), weights["w1"].data_ptr(), weights["b1"].data_ptr(),
+            weights["w2"].data_ptr(), weights["b2"].data_ptr(), weights["w3"].data_ptr(),
+            weights["b3"].data_ptr(), out.data_ptr(), b, h4, w4, sw, stream)
+        build.check(err, "fre_fused_stem")
     fused_stem.launches += 1
     return out
 

@@ -61,7 +61,7 @@ def test_warp_kernel_matches_plain(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,nv", [(1, 4096, 4000), (37, 3000, 2999), (256, 8192, 8192),
-                                    (5, 1024, 0)])
+                                    (5, 1024, 0), (33, 5000, 4999), (64, 65536, 50000)])
 def test_top1_kernel_matches_plain(cuda, dtype, b, n, nv):
     rng = np.random.default_rng(1)
     g = torch.from_numpy(_unit(rng, n)).to(cuda, dtype)
@@ -95,6 +95,54 @@ def test_top1_kernel_ties_go_to_lowest_index(cuda):
     assert i.tolist() == [129, 129, 129]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_top1_equal_rows_score_equal_wherever_they_sit(cuda, dtype):
+    """Two equal rows at different positions in their 32-row chunks (and in
+    their warps' 4-row groups) give bit-equal scores, and the lower row
+    wins: the kernel's summation order does not depend on a row's place."""
+    rng = np.random.default_rng(5)
+    g = torch.from_numpy(_unit(rng, 9000)).to(cuda, dtype)
+    pairs = [(5, 70), (33, 8191), (1000, 1003), (4095, 4128)]
+    q = torch.zeros(len(pairs), 512, device=cuda)
+    for k, (lo, hi) in enumerate(pairs):
+        g[hi] = g[lo]
+        q[k] = g[lo].float() + 0.01 * torch.from_numpy(_unit(rng, 1)[0]).to(cuda)
+    v, i = match_kernel.gallery_top1(q, g, 9000)
+    assert i.tolist() == [lo for lo, _ in pairs]
+    for k, (lo, hi) in enumerate(pairs):
+        alone = g.clone()
+        alone[lo] = 0  # the lower copy gone: the upper one wins alone
+        v_hi, i_hi = match_kernel.gallery_top1(q[k:k + 1], alone, 9000)
+        assert int(i_hi) == hi and v_hi.item() == v[k].item()
+
+
+def test_mixed_dtype_batch_norm_rounds_once(cuda):
+    """The bf16 engine's BatchNorm on the card: bf16 input, f32 weight, bias
+    and statistics, returned in bf16 equal bit for bit to the f32
+    computation rounded once, contiguous and channels_last."""
+    from facerecognition_infrenceengine_tpu_torch.models.layers import cast_keep_bn_f32
+
+    rng = np.random.default_rng(6)
+    c = 64
+    bn = torch.nn.BatchNorm2d(c).eval()
+    with torch.no_grad():
+        for t, scale in ((bn.weight, 1.0), (bn.bias, 1.0), (bn.running_mean, 2.0)):
+            t.copy_(torch.from_numpy(rng.normal(0, scale, c).astype(np.float32)))
+        bn.running_var.copy_(torch.from_numpy(np.exp(rng.normal(0, 1, c)).astype(np.float32)))
+    cast_keep_bn_f32(bn, cuda, torch.bfloat16)
+    assert bn.running_var.dtype == torch.float32 and bn.weight.dtype == torch.float32
+    x = torch.from_numpy(rng.normal(0, 3, (8, c, 28, 28)).astype(np.float32)).to(cuda)
+    x = x.bfloat16()
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        xi = x.contiguous(memory_format=fmt)
+        with torch.no_grad():
+            got = bn(xi)
+            want = torch.nn.functional.batch_norm(xi.float(), bn.running_mean, bn.running_var,
+                                                  bn.weight, bn.bias, False, 0.0, bn.eps)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, want.bfloat16())
+
+
 # ------------------------------------------------------------------- K4
 def _stem_weights(sw, dtype, device, seed=0):
     """Random BN-folded stem weights in the kernel's layout (HWIO)."""
@@ -108,7 +156,8 @@ def _stem_weights(sw, dtype, device, seed=0):
     return out
 
 
-@pytest.mark.parametrize("b,h,w,sw", [(2, 640, 640, 28), (2, 128, 64, 12), (1, 36, 44, 8)])
+@pytest.mark.parametrize("b,h,w,sw", [(2, 640, 640, 28), (2, 128, 64, 12), (1, 36, 44, 8),
+                                      (3, 80, 80, 28)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stem_kernel_matches_plain(cuda, b, h, w, sw, dtype):
     """f32: within 1e-4 of the largest output (summation order).  bf16: each

@@ -85,6 +85,42 @@ def test_fold_equals_reference_packed_weights(trees, arch, dtype):
                                       np.asarray(want[key]), err_msg=key)
 
 
+def _unfragment(frag: torch.Tensor) -> np.ndarray:
+    """Invert the MMA B-fragment order: [k-steps, N/8, 32, 4] -> [k-steps,
+    16, N], from the m16n8k16 layout (lane l, value e holds B[k][8t + l/4]
+    with k = 2(l%4) + e%2 + 8(e//2)), written out independently of
+    ``stem_kernel._b_fragments``."""
+    f = frag.float().numpy()
+    ks, nt = f.shape[:2]
+    out = np.full((ks, 16, nt * 8), np.nan, np.float32)
+    for lane in range(32):
+        for e in range(4):
+            k = 2 * (lane % 4) + e % 2 + 8 * (e // 2)
+            out[:, k, lane // 4::8] = f[:, :, lane, e]
+    return out
+
+
+@pytest.mark.parametrize("arch,sw,cp", [("det_10g", 28, 32), ("det_2.5g", 12, 16),
+                                        ("det_500m", 8, 16)])
+def test_mma_fragments_unpack_to_the_fold(arch, sw, cp):
+    """The padded, fragment-ordered bf16 weights the tensor-core kernel reads
+    unpack exactly to precompute_fused_stem's HWIO fold, with zeros in every
+    padded row and column."""
+    model, _ = _stem_tree(arch)
+    got = stem_kernel.precompute_fused_stem(model, torch.bfloat16)
+    assert stem_kernel.stem_channel_pad(sw) == cp
+    b1 = _unfragment(got["f1"]).reshape(3, 4, 4, cp)  # [ky, raw column j, channel, n]
+    b2 = _unfragment(got["f2"]).reshape(3, 3, cp, cp)
+    b3 = _unfragment(got["f3"]).reshape(3, 3, cp, 2 * sw)
+    for key, full, real in (("w1", b1, b1[:, :3, :3, :sw]), ("w2", b2, b2[:, :, :sw, :sw]),
+                            ("w3", b3, b3[:, :, :sw, :])):
+        want = got[key].float().numpy()
+        np.testing.assert_array_equal(real, want, err_msg=key)
+        assert np.count_nonzero(np.nan_to_num(full, nan=1.0)) == np.count_nonzero(want), key
+        assert got["f" + key[1]].dtype == torch.bfloat16 and got["f" + key[1]].is_contiguous()
+    assert "f1" not in stem_kernel.precompute_fused_stem(model, torch.float32)
+
+
 @pytest.mark.parametrize("stride", [1, 2])
 def test_select_tensor_and_pack_kernel_match_reference(stride):
     from facerecognition_infrenceengine_tpu.models import packed_stem as jax_packed
