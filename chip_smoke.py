@@ -42,16 +42,20 @@ Phases, one flushed line each:
      path, in bf16 (tensor cores) and f32, at 128x64 with sw = 12 and at
      36x44 with sw = 8 (edge tiles; the three stem widths of det_10g,
      det_2.5g and det_500m);
-   - K2 at B = 1, 32, 256 on the yuv path's int8 gallery with requests
-     2-3's embeddings as queries, on a planted copy as for K1, and with
-     n_valid = 0: ids and values exactly equal;
+   - K2 at B = 1, 32, 64, 128, 256 on the yuv path's int8 gallery with
+     requests 2-3's embeddings as queries, on a planted copy as for K1 (the
+     ties placed in and across K2's 32-row chunks), and with n_valid = 0:
+     ids and values exactly equal; and one device kernel a K2 call
+     (torch.profiler) at B = 1, 32, 256;
    - the yuv mix on the card against the CPU on every (Y, U, V) triple.
 6. times: `ms` is the wrapper call as the path makes it, CUDA events over
    back-to-back calls after warm-up (host dispatch included where the host
    is slower than the card); `kernel_device_ms` is the kernels' own device
    time a call, from torch.profiler's device events over the same calls.
-   Bounds from this run's inputs (K3's bytes are the ROI pixels its taps
-   read, not the whole ROI).  K1's wrapper is also timed at B = 1 with its
+   K2 also gives `kernel_device_ms_cold`, its kernel's device time with
+   the L2 cache evicted (a 256 MB read) before every call.  Bounds from
+   this run's inputs (K3's bytes are the ROI pixels its taps read, not the
+   whole ROI).  K1's wrapper is also timed at B = 1 with its
    scratch cache emptied before every call (`ms_uncached`): the per-call
    allocations and library lookups the cache removes.
 7. the card line, then {"ok": true, "device": ...} as the last line.
@@ -60,7 +64,8 @@ Phases, one flushed line each:
 
 also traces one more request of each path with torch.profiler after the
 checks: wall time, the device's busy share, the kernels that take the
-most device time, and the BatchNorm kernels' count and device time.
+most device time, the hand-written kernels' count and device time, and
+the BatchNorm kernels' count and device time.
 
 Any failed check or exception exits non-zero before the last line.  With no
 CUDA device, or without the port's package beside it, it exits non-zero
@@ -92,6 +97,9 @@ WARP_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/warp.cu"
 MATCH_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match.cu"
 MATCH_INT8_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match_int8.cu"
 STEM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/stem.cu"
+# the kernels of csrc/ as torch.profiler names them
+HAND_KERNELS = ("warp_rois_kernel", "top1_f32_kernel", "top1_bf16_kernel", "top1_int8_kernel",
+                "fused_stem")
 INT8_MARGIN = 5e-3  # f32 top-1 lead over the runner-up above which int8 must agree
 
 
@@ -135,22 +143,50 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(torch, fn, iters: int = 20) -> float:
-    """The device time a call of fn: the sum of torch.profiler's device
-    events (kernels, copies, memsets) over iters calls, after a warm-up."""
+def device_events(torch, fn, iters: int, before=None) -> list:
+    """torch.profiler's device events (key, count, self device us) over iters
+    calls of fn after a warm-up; before(), if given, runs ahead of every call.
+    A trace that recorded no device time is taken again, twice at most (the
+    profiler on the card's machine now and then returns an empty one)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if rows:
+            if attempt:
+                say(f"[profile] an empty trace was taken again ({attempt}x)")
+            return rows
+    fail("torch.profiler recorded no device time")
+
+
+def device_ms(torch, fn, iters: int = 20) -> float:
+    """The device time a call of fn: the sum of torch.profiler's device
+    events (kernels, copies, memsets) over iters calls, after a warm-up."""
+    return sum(us for _, _, us in device_events(torch, fn, iters)) / 1e3 / iters
+
+
+def kernel_ms(torch, fn, part: str, iters: int = 20, before=None) -> float:
+    """The device time a call of fn of the kernels whose name holds part;
+    before(), if given, runs ahead of every call and is not counted."""
+    us = sum(u for key, _, u in device_events(torch, fn, iters, before) if part in key)
     if us <= 0:
-        fail("torch.profiler recorded no device time")
+        fail(f"torch.profiler recorded no device time for {part}")
     return us / 1e3 / iters
+
+
+def device_kernels(torch, fn) -> list:
+    """(name, count) of every device event of one traced call of fn."""
+    return [(key, count) for key, count, _ in device_events(torch, fn, 1)]
 
 
 def profile_request(torch, fn, label: str, top: int = 12) -> None:
@@ -176,6 +212,9 @@ def profile_request(torch, fn, label: str, top: int = 12) -> None:
         f"({100 * busy_ms / wall_ms:.1f}%), idle {100 - 100 * busy_ms / wall_ms:.1f}%")
     for us, count, key in rows[:top]:
         say(f"[profile] {label}:   {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    for us, count, key in rows:  # the hand-written kernels, wherever they rank
+        if any(k in key for k in HAND_KERNELS):
+            say(f"[profile] {label}:   hand {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     bn = [r for r in rows if "batch_norm" in r[2]]
     say(f"[profile] {label}: BatchNorm kernels {sum(r[1] for r in bn)} launches, "
         f"{sum(r[0] for r in bn) / 1e3:.3f} ms device")
@@ -671,17 +710,26 @@ def main() -> int:
         check(torch.equal(i, pi) and torch.equal(v, pv), f"K2 {what}: differs from plain")
         return i
 
-    for bq in (1, 32, 256):
+    int8_bs = (1, 32, 64, 128, 256)
+    for bq in int8_bs:
         i = compare_int8(yfar[:bq].contiguous(), g8, CAPACITY_ROWS, f"B={bq}")
-    for bq in (1, 32, 256):
-        v, i = match_kernel.gallery_top1_int8(yfar[:bq].contiguous(), g8, gs, 0)
-        check(bool(torch.all(v == float("-inf"))) and bool(torch.all(i == 0)),
+    for bq in int8_bs:
+        v, i0 = match_kernel.gallery_top1_int8(yfar[:bq].contiguous(), g8, gs, 0)
+        check(bool(torch.all(v == float("-inf"))) and bool(torch.all(i0 == 0)),
               f"K2 n_valid=0 B={bq}")
+    # K2's chunking: the 32-row unit a warp holds in registers
     i8_chunk = build.lib().fre_gallery_top1_int8_rows_per_block()
     say(f"[kernels] K2 path int8 gallery N={g8.shape[0]} n_valid={CAPACITY_ROWS}, requests 2-3 "
-        f"as queries B=1,32,256: ids and values equal to plain; top-1 rows "
+        f"as queries B={','.join(map(str, int8_bs))}: ids and values equal to plain; top-1 rows "
         f"{int(i.min())}..{int(i.max())} in {i.div(i8_chunk, rounding_mode='floor').unique().numel()}"
         f" of {-(-CAPACITY_ROWS // i8_chunk)} {i8_chunk}-row chunks; n_valid=0 -> -inf")
+    # one device kernel a call, with no copy or memset, at every form of the launch
+    for bq in (1, 32, 256):
+        qq = yfar[:bq].contiguous()
+        ev = device_kernels(torch, lambda: match_kernel.gallery_top1_int8(qq, g8, gs, CAPACITY_ROWS))
+        check(len(ev) == 1 and ev[0][1] == 1 and "top1_int8" in ev[0][0],
+              f"K2 B={bq}: device events of one call {ev}")
+    say(f"[kernels] K2 one device kernel a call at B=1,32,256: {ev[0][0][:60]}")
     qa8 = torch.clamp(torch.round(qa / gs), -127, 127).to(torch.int8)
     qb8 = torch.clamp(torch.round(qb / gs), -127, 127).to(torch.int8)
     planted8 = g8.clone()
@@ -691,14 +739,22 @@ def main() -> int:
     planted8[last] = qb8               # tie across chunks: 30,000 wins
     planted8[CAPACITY_ROWS + 10] = (127 * torch.sign(qa)).to(torch.int8)  # past n_valid
     planted8[FAR_ROW] = (127 * torch.sign(qb)).to(torch.int8)
-    for bq in (1, 32, 256):
+    for bq in int8_bs:
         q = torch.cat([torch.stack([qa, qb]), yfar])[:bq].contiguous()
         i = compare_int8(q, planted8, CAPACITY_ROWS, f"planted B={bq}")
         check(torch.equal(i[:2], want_rows[:bq]),
               f"K2 planted B={bq}: got {i[:2].tolist()}, want {want_rows[:bq].tolist()}")
+    unit_of = {row: row // i8_chunk for row in (last - 9, last - 4, TIE_ROW, last,
+                                                CAPACITY_ROWS + 10)}
+    check(unit_of[last - 9] == unit_of[last - 4] == unit_of[CAPACITY_ROWS + 10]
+          == (CAPACITY_ROWS - 1) // i8_chunk and unit_of[TIE_ROW] != unit_of[last],
+          f"K2 planted rows do not fall in the chunks their ties need: {unit_of}")
     say(f"[kernels] K2 planted int8 gallery: self-matches at rows {last - 9} and {TIE_ROW} "
-        f"(ties with {last - 4} and {last}) found at B=1,32,256; rows {CAPACITY_ROWS + 10} and "
-        f"{FAR_ROW} past n_valid never won; ids and values equal to plain")
+        f"(ties with {last - 4} in the same, last valid {i8_chunk}-row chunk "
+        f"{unit_of[last - 9]}, and with {last} in chunk {unit_of[last]} against "
+        f"{unit_of[TIE_ROW]}) found at B={','.join(map(str, int8_bs))}; rows "
+        f"{CAPACITY_ROWS + 10} (chunk {unit_of[CAPACITY_ROWS + 10]}) and {FAR_ROW} past n_valid "
+        f"never won; ids and values equal to plain")
 
     # the yuv mix on the card against the CPU on every (Y, U, V) triple
     u_, v_, g_ = np.meshgrid(np.arange(256), np.arange(256), np.arange(16), indexing="ij")
@@ -756,22 +812,32 @@ def main() -> int:
     top1_bound, top1_by = bound(CAPACITY_ROWS * 512 * 4 + path_b * 512 * 4 + path_b * 8,
                                 2 * path_b * CAPACITY_ROWS * 512, "float32")
 
-    # K2 at the yuv path's B = 32 (and 1, 256); library: torch._int_mm + mask + max
-    # (cuBLASLt int8 needs more than 16 rows)
+    # K2 at the yuv path's B = 32 (and 1, 64, 128, 256); library: torch._int_mm + mask +
+    # max; cuBLASLt int8 needs more than 16 rows, so below 17 the library is timed on
+    # the queries zero-padded to 32 rows.  kernel_device_ms is taken over back-to-back
+    # calls, as the path makes its 8 a request (the 25.6 MB gallery can stay in the
+    # 50 MB L2); kernel_device_ms_cold reads a 256 MB buffer before every call, which
+    # evicts it.
     def library_top1_int8(qq):
         q_int, _ = match_kernel.quantize_queries(qq)
         raw = torch._int_mm(q_int, g8.t())
         return torch.where(valid_cols, raw, torch.iinfo(torch.int32).min).max(dim=1)
 
-    int8_times, int8_dev, int8_lib = {}, {}, {}
-    for bq in (1, 32, 256):
+    evict = torch.zeros(256 * 2**20 // 4, device=dev)
+    int8_times, int8_dev, int8_cold, int8_lib, int8_lib_rows = {}, {}, {}, {}, {}
+    for bq in int8_bs:
         qq = yfar[:bq].contiguous()
         int8_times[bq] = time_ms(
             torch, lambda: match_kernel.gallery_top1_int8(qq, g8, gs, CAPACITY_ROWS), 50)
         int8_dev[bq] = device_ms(
             torch, lambda: match_kernel.gallery_top1_int8(qq, g8, gs, CAPACITY_ROWS))
-        if bq > 16:
-            int8_lib[bq] = time_ms(torch, lambda: library_top1_int8(qq), 20)
+        int8_cold[bq] = kernel_ms(
+            torch, lambda: match_kernel.gallery_top1_int8(qq, g8, gs, CAPACITY_ROWS),
+            "top1_int8", before=evict.sum)
+        int8_lib_rows[bq] = 32 if bq <= 16 else bq
+        ql = torch.cat([qq, qq.new_zeros(int8_lib_rows[bq] - bq, 512)])
+        int8_lib[bq] = time_ms(torch, lambda: library_top1_int8(ql), 20)
+    del evict
     q8 = yfar[:path_b].contiguous()
     int8_plain_ms = time_ms(
         torch, lambda: match_kernel.gallery_top1_int8_plain(q8, g8, gs, CAPACITY_ROWS), 20)
@@ -826,7 +892,7 @@ def main() -> int:
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:235",
          "launches": y_launches["gallery_top1_int8"], "max_abs_err": 0.0,
          "ms": int8_times[path_b], "kernel_device_ms": int8_dev[path_b],
-         "plain_ms": int8_plain_ms,
+         "kernel_device_ms_cold": int8_cold[path_b], "plain_ms": int8_plain_ms,
          "bound_ms": int8_bound(path_b)[0], "bound_by": int8_bound(path_b)[1],
          "library_ms": int8_lib[path_b]},
         {"name": "fused_stem", "route": "cuda", "source": STEM_SRC,
@@ -849,8 +915,10 @@ def main() -> int:
     for bq, ms in int8_times.items():
         bnd, by = int8_bound(bq)
         variants.append({"name": "gallery_top1_int8", "dtype": "int8", "B": bq, "ms": ms,
-                         "kernel_device_ms": int8_dev[bq], "bound_ms": bnd, "bound_by": by,
-                         "library_ms": int8_lib.get(bq)})
+                         "kernel_device_ms": int8_dev[bq],
+                         "kernel_device_ms_cold": int8_cold[bq], "bound_ms": bnd,
+                         "bound_by": by, "library_ms": int8_lib[bq],
+                         "library_rows": int8_lib_rows[bq]})
     for dtype_name, ms in stem_times.items():
         bnd, by = stem_bound(x48, sw, dtype_name)
         variants.append({"name": "fused_stem", "dtype": dtype_name, "B": FRAMES,
@@ -866,7 +934,8 @@ def main() -> int:
         f"device {dev_times[('bfloat16', path_b)]:.4f} ms (library "
         f"{lib_times[('bfloat16', path_b)]:.4f}); B=1 f32 {times[('float32', 1)]:.4f} ms, "
         f"uncached {top1_uncached_ms:.4f} ms")
-    say(f"[times] {card} | K2 B={path_b}: {int8_times[path_b]:.4f} ms (plain "
+    say(f"[times] {card} | K2 B={path_b}: {int8_times[path_b]:.4f} ms, device "
+        f"{int8_dev[path_b]:.4f} ms, L2 evicted {int8_cold[path_b]:.4f} ms (plain "
         f"{int8_plain_ms:.4f}, library {int8_lib[path_b]:.4f}, bound "
         f"{int8_bound(path_b)[0] * 1e3:.2f} us by {int8_bound(path_b)[1]}) | K4 bf16 B=8 "
         f"640x640: {stem_times['bfloat16']:.4f} ms (device {stem_dev['bfloat16']:.4f}), f32 "

@@ -32,8 +32,7 @@ SIGNATURES = {
     "fre_warp_rois": [_P, _P, _P, _I, _I, _I, _I, _P],
     "fre_gallery_top1": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "fre_gallery_top1_rows_per_block": [],
-    "fre_gallery_top1_int8": [_P, _P, ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                              _P],
+    "fre_gallery_top1_int8": [_P, _P, ctypes.c_float, _I, _I, _P, _P, _P, _P, _P, _P],
     "fre_gallery_top1_int8_rows_per_block": [],
     "fre_fused_stem": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fre_fused_stem_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

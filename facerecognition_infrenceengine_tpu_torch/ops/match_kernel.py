@@ -29,8 +29,8 @@ from ..kernels import build
 
 DIM = 512
 _DTYPES = (torch.float32, torch.bfloat16)
-_scratch: dict = {}  # (kernel, device, stream, b[, chunks]) -> scratch buffers
-_entries: dict = {}  # kernel -> its C entry (and K2's rows a chunk)
+_scratch: dict = {}  # (kernel, device, stream, b) -> scratch buffers
+_entries: dict = {}  # kernel -> its C entry
 
 
 def _cached_scratch(key, make):
@@ -171,8 +171,7 @@ def gallery_top1_int8(queries: torch.Tensor, gallery_q: torch.Tensor, gallery_sc
     """Top-1 match against an int8 gallery with one global scale.
 
     queries: [B, 512] float normalized, quantized with one scale for the
-      batch (in the kernel's first step; ``quantize_queries`` in the plain
-      version).
+      batch (inside the kernel; ``quantize_queries`` in the plain version).
     gallery_q: [N, 512] int8, contiguous; rows [n_valid:] are never read.
     gallery_scale: the gallery's global f32 scale.
     Returns (values [B] float32 approximate cosines, indices [B] int32).
@@ -192,32 +191,29 @@ def gallery_top1_int8(queries: torch.Tensor, gallery_q: torch.Tensor, gallery_sc
     if not gallery_q.is_contiguous() or gallery_q.data_ptr() % 16:
         raise ValueError("gallery must be contiguous and 16-byte aligned")
     q = queries.float().contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     b = q.shape[0]
     n_rows = max(0, min(n_valid, gallery_q.shape[0]))
     dev = gallery_q.device
-    entry = _entries.get("top1_int8")
-    if entry is None:
-        lib = build.lib()
-        entry = _entries["top1_int8"] = (lib.fre_gallery_top1_int8,
-                                         lib.fre_gallery_top1_int8_rows_per_block())
-    fn, rows_per_block = entry
-    chunks = -(-n_rows // rows_per_block)
-    if chunks > 65535:
-        raise ValueError(f"gallery of {n_rows} rows exceeds the kernel's grid")
+    fn = _entries.get("top1_int8")
+    if fn is None:
+        fn = _entries["top1_int8"] = build.lib().fre_gallery_top1_int8
     vals = torch.empty(b, dtype=torch.float32, device=dev)
     idx = torch.empty(b, dtype=torch.int32, device=dev)
     if b == 0:
         return vals, idx
     stream = torch._C._cuda_getCurrentRawStream(dev.index)  # cheaper than current_stream()
-    q_int, qs, part_val, part_idx = _cached_scratch(
-        ("top1_int8", dev, stream, b, chunks),
-        lambda: (torch.empty((b, DIM), dtype=torch.int8, device=dev),
-                 torch.empty(1, dtype=torch.float32, device=dev),
-                 torch.empty(max(chunks, 1) * b, dtype=torch.int32, device=dev),
-                 torch.empty(max(chunks, 1) * b, dtype=torch.int32, device=dev)))
-    err = fn(q.data_ptr(), gallery_q.data_ptr(), float(gallery_scale), b, n_rows, chunks,
-             q_int.data_ptr(), qs.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-             vals.data_ptr(), idx.data_ptr(), stream)
+    # the batch's max|q| word and a done-counter, a 64-bit best key a query
+    # (all zero between calls), and the quantized queries (used for B > 32)
+    state, keys, q_int = _cached_scratch(
+        ("top1_int8", dev, stream, b),
+        lambda: (torch.zeros(2, dtype=torch.int32, device=dev),
+                 torch.zeros(b, dtype=torch.int64, device=dev),
+                 torch.empty((b, DIM), dtype=torch.int8, device=dev)))
+    err = fn(q.data_ptr(), gallery_q.data_ptr(), float(gallery_scale), b, n_rows,
+             state.data_ptr(), q_int.data_ptr(), keys.data_ptr(), vals.data_ptr(),
+             idx.data_ptr(), stream)
     build.check(err, "fre_gallery_top1_int8")
     gallery_top1_int8.launches += 1
     return vals, idx

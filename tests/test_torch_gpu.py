@@ -224,3 +224,108 @@ def test_top1_int8_kernel_ties_and_rows_past_n_valid(cuda):
     v, i = match_kernel.gallery_top1_int8(q, g, 0.01, 60002)
     pv, pi = match_kernel.gallery_top1_int8_plain(q, g, 0.01, 60002)
     assert i.tolist() == pi.tolist() == [129, 129, 129] and torch.equal(v, pv)
+
+
+@pytest.fixture(scope="module")
+def int8_gallery():
+    """The N = 65,536 int8 gallery of the K2 edge cases, made once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    gq, gs = match_kernel.quantize_gallery(_unit(np.random.default_rng(7), 65536), headroom=1.25)
+    return torch.from_numpy(gq).cuda(), gs
+
+
+def _int8_equal(q, g, gs, nv):
+    v, i = match_kernel.gallery_top1_int8(q, g, gs, nv)
+    pv, pi = match_kernel.gallery_top1_int8_plain(q, g, gs, nv)
+    torch.cuda.synchronize()
+    assert torch.equal(i, pi) and torch.equal(v, pv)
+    return v, i
+
+
+@pytest.mark.parametrize("nv", [1, 127, 128, 129, 50000, 65536])
+@pytest.mark.parametrize("b", [1, 2, 16, 17, 31, 64, 128, 255, 512])
+def test_top1_int8_kernel_bit_equal_at_tile_and_chunk_edges(cuda, int8_gallery, b, nv):
+    """Query-tile edges (16-query m-tiles, the 256-query tile, two tiles at
+    B = 512) and row-chunk edges (32-row warp units): ids and values equal
+    to the plain version, and a planted copy of the last valid row found."""
+    g, gs = int8_gallery
+    q = torch.from_numpy(_unit(np.random.default_rng(b * 7 + nv), b)).to(cuda)
+    q[b - 1] = g[nv - 1].float() * gs
+    _, i = _int8_equal(q, g, gs, nv)
+    assert int(i[b - 1]) == nv - 1
+
+
+def test_top1_int8_kernel_all_zero_batch(cuda, int8_gallery):
+    """An all-zero (bucket padding) batch: qs = 1e-12 / 127, every dot 0, so
+    row 0 wins everywhere with the value 0."""
+    g, gs = int8_gallery
+    v, i = _int8_equal(torch.zeros(32, 512, device=cuda), g, gs, 50000)
+    assert torch.all(i == 0) and torch.all(v == 0)
+
+
+def test_top1_int8_kernel_all_negative_dots(cuda):
+    """Rows of positive bytes queried by their own negation: every valid dot
+    is negative, so the best is the least negative (the key's sign flip)."""
+    rng = np.random.default_rng(8)
+    g = torch.from_numpy(rng.integers(1, 128, (20000, 512)).astype(np.int8)).to(cuda)
+    rows = [0, 31, 32, 9000, 19999]
+    q = -g[rows].float()
+    v, _ = _int8_equal(q, g, 0.01, 20000)
+    assert torch.all(v < 0)
+
+
+def test_top1_int8_kernel_saturated_rows(cuda):
+    """Rows at +-127 against a +-1 query: |dot| = 512 * 127**2 = 8,258,048,
+    the largest raw value, exact at both signs."""
+    rng = np.random.default_rng(9)
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], size=512).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.integers(-20, 21, (4096, 512)).astype(np.int8)).to(cuda)
+    g[100] = (127 * sign).to(torch.int8)
+    g[3000] = (-127 * sign).to(torch.int8)
+    q = torch.stack([sign, -sign, sign])
+    gs = 0.004
+    v, i = _int8_equal(q, g, gs, 4096)
+    assert i.tolist() == [100, 3000, 100]
+    qs = torch.tensor(1.0, device=cuda) / torch.tensor(127.0, device=cuda)
+    assert torch.all(v == 8258048.0 * (qs * gs))
+
+
+def test_top1_int8_kernel_back_to_back_calls_and_streams(cuda, int8_gallery):
+    """Alternating batch sizes and n_valid (0 among them) on one stream, each
+    call leaving its keys and counters at zero for the next; then a second
+    stream with its own scratch."""
+    g, gs = int8_gallery
+    rng = np.random.default_rng(10)
+    for b, nv in [(32, 50000), (1, 0), (32, 129), (256, 65536), (32, 0), (1, 1), (512, 50000),
+                  (32, 50000), (256, 0), (17, 127)]:
+        _int8_equal(torch.from_numpy(_unit(rng, b)).to(cuda), g, gs, nv)
+    side = torch.cuda.Stream()
+    q = torch.from_numpy(_unit(rng, 32)).to(cuda)
+    with torch.cuda.stream(side):
+        for nv in (50000, 0, 128):
+            v, i = match_kernel.gallery_top1_int8(q, g, gs, nv)
+            pv, pi = match_kernel.gallery_top1_int8_plain(q, g, gs, nv)
+            side.synchronize()
+            assert torch.equal(i, pi) and torch.equal(v, pv)
+
+
+@pytest.mark.parametrize("b", [1, 32, 256, 512])
+def test_top1_int8_kernel_is_one_device_kernel_a_call(cuda, int8_gallery, b):
+    """torch.profiler sees exactly one device kernel (and no copy or memset)
+    for each wrapper call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g, gs = int8_gallery
+    q = torch.from_numpy(_unit(np.random.default_rng(11), b)).to(cuda)
+    match_kernel.gallery_top1_int8(q, g, gs, 50000)  # scratch made outside the trace
+    torch.cuda.synchronize()
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            match_kernel.gallery_top1_int8(q, g, gs, 50000)
+        torch.cuda.synchronize()
+    events = [(e.key, e.count) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    assert len(events) == 1 and events[0][1] == calls, events
+    assert "top1_int8" in events[0][0]

@@ -87,6 +87,60 @@ def test_plain_int8_ties_rows_past_n_valid_and_a_padded_batch():
     np.testing.assert_array_equal(i_small, i[:5])
 
 
+def _edge_case(case):
+    """(queries, float gallery, n_valid) of the edge cases below."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case == "all_zero_batch":  # bucket padding only: qs = 1e-12 / 127, every dot 0
+        return np.zeros((32, 512), np.float32), _unit(rng, 1024), 1000
+    if case == "all_negative_dots":  # positive rows queried by their negation
+        g = np.abs(_unit(rng, 1024))
+        return -g[[0, 31, 32, 500, 999]], g, 1000
+    if case == "saturated_rows":  # rows at +-127 against +-1 queries: |dot| = 512 * 127**2
+        sign = rng.choice([-1.0, 1.0], size=512).astype(np.float32)
+        g = rng.uniform(-0.5, 0.5, (2048, 512)).astype(np.float32)
+        g[100], g[1500] = sign, -sign
+        return np.stack([sign, -sign, sign]), g, 2048
+    if case.startswith("n_valid_"):  # the edges of 32- and 128-row chunks
+        nv = int(case.split("_")[-1])
+        g = _unit(rng, 2048)
+        q = g[[0, nv - 1, nv // 2, nv, nv + 1]] + rng.normal(size=(5, 512)).astype(np.float32) * 1e-2
+        return q, g, nv
+    assert case == "b257_bucketed"  # padded to bucket(257) = 512 rows, as the snapshot does
+    g = _unit(rng, 1024)
+    q = np.zeros((512, 512), np.float32)
+    q[:257] = _unit(rng, 257)
+    q[:5] = g[[3, 64, 999, 500, 7]]
+    return q, g, 1000
+
+
+@pytest.mark.parametrize("case", ["all_zero_batch", "all_negative_dots", "saturated_rows",
+                                  "n_valid_1", "n_valid_127", "n_valid_128", "n_valid_129",
+                                  "b257_bucketed"])
+def test_plain_int8_edge_cases_match_pallas(case):
+    """The cases K2's card tests hold the kernel to, here held between the
+    plain version and the reference's kernel in the interpreter: ids and
+    values equal."""
+    q, g, nv = _edge_case(case)
+    v, i = _both(q, g, nv)
+    if case == "all_zero_batch":
+        assert np.all(i == 0) and np.all(v == 0)
+    elif case == "all_negative_dots":
+        assert np.all(v < 0)
+    elif case == "saturated_rows":
+        assert i.tolist() == [100, 1500, 100]
+        gq, gs = match_pallas.quantize_gallery(g)
+        assert np.all(np.abs(gq[[100, 1500]]) == 127)
+        qs = np.float32(1.0) / np.float32(127.0)
+        np.testing.assert_array_equal(v, np.float32(8258048.0) * (qs * np.float32(gs)))
+    elif case.startswith("n_valid_"):
+        assert np.all(i < nv)
+        assert i[0] == 0 and i[1] == nv - 1
+    else:
+        from facerecognition_infrenceengine_tpu_torch.engine.pipeline import bucket
+        assert bucket(257) == q.shape[0]
+        assert i[:5].tolist() == [3, 64, 999, 500, 7]
+
+
 def test_int8_wrapper_counts_no_launch_on_the_cpu():
     rng = np.random.default_rng(1)
     gq, gs = match_kernel.quantize_gallery(_unit(rng, 64))
