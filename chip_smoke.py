@@ -6,8 +6,10 @@
 Phases, one flushed line each:
 
 1. device: the card's name and power limit, torch/CUDA versions; TF32 off.
-2. build: the one nvcc call over csrc/*.cu, its seconds and ptxas report.
-3. rgb path: FaceAnalysis("buffalo_l") with seeded synthetic det_10g +
+2. build: the one nvcc call over csrc/*.cu, its seconds and ptxas report;
+   the host codec (csrc/imagecodec.cc) built by g++, with or without JPEG.
+3. rgb path: FaceAnalysis("buffalo_l", allowed_modules=("detection",
+   "recognition")) with seeded synthetic det_10g +
    IResNet-50 weights in bf16 on a 640x640 canvas serves 3 requests of 8
    BGR 640x480 frames (get_batch), then match_faces(draw=False) on every
    frame against a 65,536-capacity gallery holding request 1's faces plus
@@ -16,17 +18,40 @@ Phases, one flushed line each:
    kernels, zeroed just before, must be > 0.  A small det_2.5g + r18 f32
    engine on the card is then held against the same engine on the CPU.
 4. yuv path: FaceAnalysis("buffalo_l", EngineConfig(stream_transport=
-   "yuv420", packed_stem_impl="pallas", gallery_dtype="int8")), det_10g +
+   "yuv420", packed_stem_impl="pallas", gallery_dtype="int8"),
+   allowed_modules=("detection", "recognition")), det_10g +
    r50 in bf16, serves 3 requests of 8 BGR 640x480 frames (host yuv420
    encode included) through K4 (fused stem), K3 and K2 (int8 top-1), then
    match_faces against an int8 gallery (capacity 65,536, n_valid 50,000:
    request 1's faces plus seeded distractors).  The launch counters of K4,
-   K3 and K2, zeroed just before, must be > 0; K2's ids and scores on the
+   K3 and K2, zeroed just before, must be > 0, with K4 once and K2 8 times
+   a request (the attribute heads, on by default, would send the batch to
+   the rgb path: the reference's rule); K2's ids and scores on the
    path must equal the plain int8 version's; request 1's faces must be
    recognized, with the f32 plain match's ids wherever its top-1 leads the
    runner-up by more than 5e-3.  A small det_2.5g + r18 f32 engine on the
    same configuration runs yuv packs on the card and on the CPU.
-5. kernels vs their plain PyTorch versions, on the card, at the paths'
+5. hd path: FaceAnalysis("buffalo_l") with its default modules
+   (detection, recognition, genderage, landmark_2d_106), det_10g + r50 and
+   the two attribute heads in bf16, serves 3 requests of 8 BGR frames from
+   mixed cameras, 4 at 1920x1080 (letterbox scale 1/3) and 4 at 1280x720
+   (1/2): the C++ letterbox x8, detect, boxes and landmarks over the
+   float32 scale, embed from the native frames padded to 1088x1920 (K3 at
+   112), the attribute heads (K3 at 96 and 192), then match_faces(draw=True)
+   against an f32 gallery (K1; capacity 65,536, n_valid 50,000) and the HUD
+   on every frame.  On the card's host the C++ letterbox and
+   letterbox_yuv420_s2d4 must equal the numpy plain versions byte for byte
+   on request 1's frames; K3 launches once a request at each crop size and
+   K1 once a frame; every face of request 1 finds its own id at >= 0.99;
+   gender is 0 or 1; request 1's 106 landmarks equal the landmark head's
+   output on its crops mapped back through the crop affine, and the
+   farthest landmark (in box sides from the box centre) on 256 boxes inside
+   the frames equals the float32 head's on the CPU within a bf16 step; the
+   share within 1.5 box sides is reported (the seeded head is untrained, so
+   it is not bounded).  Host times: 8 letterboxes, C++ against plain, and the yuv420
+   encode of the rgb path's 8 640x480 frames, C++ (encode_frame) against the
+   numpy encoder the port used before the host codec was built.
+6. kernels vs their plain PyTorch versions, on the card, at the paths'
    shapes:
    - K3 at M = 256 on request 1's ROIs (with the path's pyramid-level
      histogram and the share of output pixels whose taps clamp to the ROI
@@ -47,8 +72,10 @@ Phases, one flushed line each:
      ties placed in and across K2's 32-row chunks), and with n_valid = 0:
      ids and values exactly equal; and one device kernel a K2 call
      (torch.profiler) at B = 1, 32, 256;
-   - the yuv mix on the card against the CPU on every (Y, U, V) triple.
-6. times: `ms` is the wrapper call as the path makes it, CUDA events over
+   - the yuv mix on the card against the CPU on every (Y, U, V) triple;
+   - K3 at 96 and 192 on the hd path's request-1 boxes and on 256 boxes of
+     40-400 px inside its frames.
+7. times: `ms` is the wrapper call as the path makes it, CUDA events over
    back-to-back calls after warm-up (host dispatch included where the host
    is slower than the card); `kernel_device_ms` is the kernels' own device
    time a call, from torch.profiler's device events over the same calls.
@@ -58,12 +85,12 @@ Phases, one flushed line each:
    whole ROI).  K1's wrapper is also timed at B = 1 with its
    scratch cache emptied before every call (`ms_uncached`): the per-call
    allocations and library lookups the cache removes.
-7. the card line, then {"ok": true, "device": ...} as the last line.
+8. the card line, then {"ok": true, "device": ...} as the last line.
 
     python3 chip_smoke.py --profile
 
-also traces one more request of each path with torch.profiler after the
-checks: wall time, the device's busy share, the kernels that take the
+also traces one more request of each path (rgb, yuv, hd) with
+torch.profiler after the checks: wall time, the device's busy share, the kernels that take the
 most device time, the hand-written kernels' count and device time, and
 the BatchNorm kernels' count and device time.
 
@@ -90,6 +117,9 @@ CAPACITY = 65_536               # their padded capacity
 TIE_ROW, FAR_ROW = 30_000, 65_000  # planted rows: a tie across chunks, one past n_valid
 CANVAS = 640                    # det canvas side
 FRAME_H, FRAME_W = 480, 640     # camera frames (letterbox scale 1.0 on the canvas)
+HD_SHAPES = ((1080, 1920),) * 4 + ((720, 1280),) * 4  # the hd path's mixed cameras
+ATTR_SIZES = (96, 192)          # the attribute heads' crops (genderage, landmark_2d_106)
+ALL_MODULES = ("detection", "recognition", "genderage", "landmark_2d_106")
 HBM_BYTES_PER_S = 3.35e12
 # FP32 CUDA cores; bf16 and int8 tensor cores (dense)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -143,25 +173,40 @@ def bound(bytes_moved: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def traced(activities):
+    """A torch.profiler session whose first step is a warm-up: its events are
+    dropped, and those of the second step are kept (the tracer on the card's
+    machine can lose the first device events of a session).  Run one call,
+    ``prof.step()``, the traced calls, ``prof.step()``."""
+    from torch.profiler import profile, schedule
+
+    return profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1,
+                                                            repeat=1))
+
+
 def device_events(torch, fn, iters: int, before=None) -> list:
     """torch.profiler's device events (key, count, self device us) over iters
     calls of fn after a warm-up; before(), if given, runs ahead of every call.
     A trace that recorded no device time is taken again, twice at most (the
     profiler on the card's machine now and then returns an empty one)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with traced([ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(iters):
                 if before is not None:
                     before()
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
+                and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")]
         if rows:
             if attempt:
                 say(f"[profile] an empty trace was taken again ({attempt}x)")
@@ -184,28 +229,36 @@ def kernel_ms(torch, fn, part: str, iters: int = 20, before=None) -> float:
     return us / 1e3 / iters
 
 
-def device_kernels(torch, fn) -> list:
-    """(name, count) of every device event of one traced call of fn."""
-    return [(key, count) for key, count, _ in device_events(torch, fn, 1)]
+def device_kernels(torch, fn, iters: int = 5) -> list:
+    """(name, count a call) of every device event of iters traced calls of fn
+    (a trace of a single short call can come back empty on the card's
+    machine)."""
+    return [(key, count / iters) for key, count, _ in device_events(torch, fn, iters)]
 
 
 def profile_request(torch, fn, label: str, top: int = 12) -> None:
     """Trace one call of fn (one request): wall ms, device-busy ms (the sum of
     the kernels' device time; one stream, so kernels do not overlap) and the
     kernels with the most device time."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     # device-side events only (kernels, copies, memsets): operator rows would
-    # count their kernels' time a second time
+    # count their kernels' time a second time, and the step's annotation spans
+    # the whole traced call
     rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     say(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
@@ -267,16 +320,41 @@ def in_canvas_kps(rng, n: int, width: int = FRAME_W, height: int = FRAME_H, dst=
     return np.stack(kps).astype(np.float32)
 
 
-def camera_frames(rng, n: int) -> list:
-    """Seeded BGR 640x480 frames: smooth shading plus sensor noise."""
-    yy, xx = np.mgrid[0:FRAME_H, 0:FRAME_W].astype(np.float32)
+def camera_frames(rng, n: int, height: int = FRAME_H, width: int = FRAME_W) -> list:
+    """Seeded BGR frames (640x480 by default): smooth shading plus sensor
+    noise."""
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
     frames = []
     for _ in range(n):
         gx, gy, base = rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2), rng.uniform(60, 190)
-        img = base + gx * (xx - FRAME_W / 2) + gy * (yy - FRAME_H / 2)
-        img = img[..., None] + rng.normal(0, 25, (FRAME_H, FRAME_W, 3))
+        img = base + gx * (xx - width / 2) + gy * (yy - height / 2)
+        img = img[..., None] + rng.normal(0, 25, (height, width, 3))
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
     return frames
+
+
+def host_ms(fn, reps: int = 3) -> list:
+    """Host wall ms of each of reps calls of fn."""
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def in_frame_boxes(rng, n: int, shapes) -> tuple:
+    """n boxes of side 40-400 px (aspect up to 1.3) inside frames of the given
+    (h, w) shapes, round robin -> (boxes [n, 4] xyxy, frame index [n])."""
+    boxes, idx = [], []
+    for k in range(n):
+        h, w = shapes[k % len(shapes)]
+        bw = rng.uniform(40, 400)
+        bh = bw * rng.uniform(1.0, 1.3)
+        x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+        boxes.append([x1, y1, x1 + bw, y1 + bh])
+        idx.append(k % len(shapes))
+    return np.asarray(boxes, np.float32), np.asarray(idx)
 
 
 def main() -> int:
@@ -295,9 +373,10 @@ def main() -> int:
     from facerecognition_infrenceengine_tpu_torch import native
     from facerecognition_infrenceengine_tpu_torch.engine.pipeline import _YUV_BLACK, bucket
     from facerecognition_infrenceengine_tpu_torch.kernels import build
-    from facerecognition_infrenceengine_tpu_torch.models import scrfd
+    from facerecognition_infrenceengine_tpu_torch.models import genderage, landmark106, scrfd
     from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
     from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis, letterbox
+    from facerecognition_infrenceengine_tpu_torch.native import plain
     from facerecognition_infrenceengine_tpu_torch.ops import (
         match_kernel, stem_kernel, warp2pass, warp_kernel, yuv)
     from facerecognition_infrenceengine_tpu_torch.ops.align import (
@@ -320,12 +399,19 @@ def main() -> int:
     for line in build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             say(f"[build] {line.strip()}")
+    t0 = time.perf_counter()
+    host_path = build.build_host()
+    native_jpeg = native.have_jpeg()
+    say(f"[build] {build.build_info.get('host_command', 'cached ' + host_path)}")
+    say(f"[build] host codec {time.perf_counter() - t0:.2f} s, JPEG "
+        f"{'compiled in (libjpeg found)' if native_jpeg else 'not compiled (no libjpeg)'}")
 
     # ------------------------------------------------------------- main path
     cfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
                  engine=EngineConfig(det_size=(CANVAS, CANVAS)))
     t0 = time.perf_counter()
-    app = FaceAnalysis("buffalo_l", cfg=cfg.engine, device="cuda")
+    app = FaceAnalysis("buffalo_l", cfg=cfg.engine, device="cuda",
+                       allowed_modules=("detection", "recognition"))
     app.prepare(ctx_id=0, det_thresh=DET_THRESH)
     engine = app._ensure_engine()
     say(f"[path] FaceAnalysis(buffalo_l) det_10g + r50 {cfg.engine.dtype} "
@@ -407,7 +493,8 @@ def main() -> int:
                   engine=EngineConfig(det_size=(CANVAS, CANVAS), stream_transport="yuv420",
                                       packed_stem_impl="pallas", gallery_dtype="int8"))
     t0 = time.perf_counter()
-    yapp = FaceAnalysis("buffalo_l", cfg=ycfg.engine, device="cuda")
+    yapp = FaceAnalysis("buffalo_l", cfg=ycfg.engine, device="cuda",
+                        allowed_modules=("detection", "recognition"))
     yapp.prepare(ctx_id=0, det_thresh=DET_THRESH)
     yengine = yapp._ensure_engine()
     say(f"[yuv] FaceAnalysis(buffalo_l) det_10g + r50 {ycfg.engine.dtype} "
@@ -471,6 +558,10 @@ def main() -> int:
     check(all(n > 0 for n in y_faces), "a yuv request found no valid slot")
     check(all(y_launches[k] > 0 for k in ("fused_stem", "warp_rois", "gallery_top1_int8")),
           f"a kernel of the yuv path was not launched: {y_launches}")
+    check(y_launches["fused_stem"] == REQUESTS and y_launches["gallery_top1_int8"] == sum(
+        1 for faces, _ in y_results for fl in faces if fl) == REQUESTS * FRAMES
+        and y_launches["gallery_top1"] == 0,
+        f"the yuv path must launch K4 once and K2 {FRAMES} times a request: {y_launches}")
     for fl in sum((f for f, _ in y_results), []):
         for face in fl:
             check(np.isfinite(face.bbox).all() and np.isfinite(face.kps).all(), "non-finite box")
@@ -542,6 +633,207 @@ def main() -> int:
     say(f"[yuv] det_2.5g+r18 f32 yuv/pallas card vs CPU: {int(valid.sum())} valid slots "
         f"identical, embedding cos >= {cos.min():.7f}, box/kps err {box_err:.2e} of max")
 
+    # --------------------------------------------------------------- hd path
+    hcfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
+                  engine=EngineConfig(det_size=(CANVAS, CANVAS)))
+    t0 = time.perf_counter()
+    happ = FaceAnalysis("buffalo_l", cfg=hcfg.engine, device="cuda")
+    happ.prepare(ctx_id=0, det_thresh=DET_THRESH)
+    hengine = happ._ensure_engine()
+    hengine._ensure_attr_models()
+    say(f"[hd] FaceAnalysis(buffalo_l) modules {list(happ.allowed_modules)}, det_10g + r50 + "
+        f"genderage + landmark_2d_106 {hcfg.engine.dtype} {hcfg.engine.det_size}, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(happ.allowed_modules == ALL_MODULES, f"default modules {happ.allowed_modules}")
+    hrng = np.random.default_rng(5)
+    hd_requests = [[camera_frames(hrng, 1, h, w)[0] for h, w in HD_SHAPES]
+                   for _ in range(REQUESTS)]
+    # the host codec on the card's host, on request 1's frames (before the HUD
+    # draws on them): C++ against the numpy plain versions, byte for byte
+    rgb1 = [np.ascontiguousarray(f[..., ::-1]) for f in hd_requests[0]]
+    hd_scales = []
+    for f in rgb1:
+        got, scale = native.letterbox(f, CANVAS, CANVAS)
+        want, want_scale = plain.letterbox_plain(f, CANVAS, CANVAS)
+        check(scale == want_scale and np.array_equal(got, want),
+              f"C++ letterbox of a {f.shape[:2]} frame differs from plain")
+        got, scale = native.letterbox_yuv420_s2d4(f, CANVAS, CANVAS)
+        want, want_scale = plain.letterbox_yuv420_s2d4_plain(f, CANVAS, CANVAS)
+        check(scale == want_scale and np.array_equal(got, want),
+              f"C++ letterbox_yuv420_s2d4 of a {f.shape[:2]} frame differs from plain")
+        hd_scales.append(scale)
+    check(sorted(set(hd_scales)) == [float(np.float32(1 / 3)), 0.5], f"scales {hd_scales}")
+    lb_ms = host_ms(lambda: [native.letterbox(f, CANVAS, CANVAS) for f in rgb1])
+    lb_plain_ms = host_ms(lambda: [plain.letterbox_plain(f, CANVAS, CANVAS) for f in rgb1])
+
+    def numpy_encode(frame):  # encode_frame as it was before the host codec
+        canvas = np.zeros((FRAME_H, CANVAS, 3), np.uint8)
+        canvas[:, :FRAME_W] = frame[..., ::-1]
+        return plain.pack_yuv420_s2d4_plain(canvas)
+
+    check(all(np.array_equal(yapp.encode_frame(f), numpy_encode(f)) for f in requests[0]),
+          "C++ yuv420 encode differs from the numpy encoder")
+    enc_ms = host_ms(lambda: [yapp.encode_frame(f) for f in requests[0]])
+    enc_plain_ms = host_ms(lambda: [numpy_encode(f) for f in requests[0]])
+    say(f"[hd] host codec on the card's host: request 1's 8 frames letterboxed by C++ "
+        f"byte-equal to plain (scales {sorted(set(hd_scales))}), yuv420 equal too; "
+        f"{card} | 8 letterboxes C++ {[round(t, 2) for t in lb_ms]} ms, plain "
+        f"{[round(t, 2) for t in lb_plain_ms]} ms | yuv420 encode of 8 640x480 frames C++ "
+        f"{[round(t, 2) for t in enc_ms]} ms, numpy {[round(t, 2) for t in enc_plain_ms]} ms")
+    hd_h = max(h for h, _ in HD_SHAPES)
+    hd_w = max(w for _, w in HD_SHAPES)
+    hd_batch = np.zeros((FRAMES, hd_h + (-hd_h) % 8, hd_w + (-hd_w) % 8, 3), np.uint8)
+    for i, f in enumerate(rgb1):
+        hd_batch[i, :f.shape[0], :f.shape[1]] = f
+
+    hgal = GalleryManager(hcfg, device="cuda")
+    hproc = FaceRecognitionProcessor(hgal, face_app=happ, cfg=hcfg)
+    warp_kernel.warp_rois.launches = 0
+    warp_kernel.warp_rois.launches_by_size.clear()
+    match_kernel.gallery_top1.launches = 0
+    match_kernel.gallery_top1_int8.launches = 0
+    stem_kernel.fused_stem.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    h_ms, h_get_ms, h_match_ms, h_faces, h_results = [], [], [], [], []
+    h_setup_ms = 0.0
+    for r, frames in enumerate(hd_requests):
+        t0 = time.perf_counter()
+        faces = happ.get_batch(frames)
+        t_get = time.perf_counter()
+        setup = 0.0
+        if r == 0:  # enrol request 1's faces plus the seeded distractors
+            hown = [f"r0-f{i}-s{j}" for i, fl in enumerate(faces) for j in range(len(fl))]
+            emb = [f.normed_embedding for fl in faces for f in fl]
+            n_dis = CAPACITY_ROWS - len(hown)
+            dis = np.random.default_rng(1).normal(size=(n_dis, 512)).astype(np.float32)
+            hids = hown + [f"distractor-{k}" for k in range(n_dis)]
+            hmeta = {pid: {"type": "employee", "name": pid, "employeeId": f"E{k:05d}"}
+                     for k, pid in enumerate(hids)}
+            hsnap = hgal.set_snapshot(hids, hmeta, np.concatenate([np.stack(emb), dis]),
+                                      company_id="site-1")
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t_get
+            h_setup_ms = setup * 1e3
+        t_match = time.perf_counter()
+        out = [hproc.match_faces(frame, fl, "site-1", draw=True)[1]
+               for frame, fl in zip(frames, faces)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        h_ms.append((t1 - t0 - setup) * 1e3)
+        h_get_ms.append((t_get - t0) * 1e3)
+        h_match_ms.append((t1 - t_match) * 1e3)
+        h_faces.append(sum(len(fl) for fl in faces))
+        h_results.append((faces, out))
+    h_launches = {"warp_rois": dict(warp_kernel.warp_rois.launches_by_size),
+                  "gallery_top1": match_kernel.gallery_top1.launches,
+                  "gallery_top1_int8": match_kernel.gallery_top1_int8.launches,
+                  "fused_stem": stem_kernel.fused_stem.launches}
+    h_peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    say(f"[hd] request wall ms {[round(t, 1) for t in h_ms]} (get_batch "
+        f"{[round(t, 1) for t in h_get_ms]}, match_faces + HUD {[round(t, 1) for t in h_match_ms]})"
+        f", peak memory {h_peak_mb:.1f} MiB")
+    say(f"[hd] valid slots per request {h_faces} of {FRAMES * hcfg.engine.max_faces}; "
+        f"f32 gallery capacity {hsnap.device_matrix.shape[0]} n_valid {hsnap.size}, built in "
+        f"{h_setup_ms:.1f} ms")
+    say(f"[hd] launches on the path {h_launches}")
+    check(all(n > 0 for n in h_faces), "an hd request found no valid slot")
+    check(h_launches["warp_rois"] == {112: REQUESTS, 96: REQUESTS, 192: REQUESTS},
+          f"the hd path must launch K3 once a request at 112, 96 and 192: {h_launches}")
+    check(h_launches["gallery_top1"] == sum(1 for faces, _ in h_results for fl in faces if fl)
+          and h_launches["gallery_top1_int8"] == h_launches["fused_stem"] == 0,
+          f"the hd path must launch K1 once a frame and neither K2 nor K4: {h_launches}")
+    for faces, _ in h_results:
+        for fl in faces:
+            for face in fl:
+                check(np.isfinite(face.bbox).all() and np.isfinite(face.kps).all(),
+                      "non-finite box")
+                check(abs(float(np.linalg.norm(face.normed_embedding)) - 1.0) < 1e-3,
+                      "embedding norm")
+                check(face.gender in (0, 1) and face.age is not None, f"gender {face.gender}")
+                check(face.landmark_2d_106.shape == (106, 2)
+                      and np.isfinite(face.landmark_2d_106).all(), "landmarks")
+    # request 1's 106 landmarks are the landmark head's output on its 192 crops
+    # mapped back through the crop affine: recomputed here from the crops, they
+    # must agree.  A trained head regresses crop coordinates in [-1, 1], which
+    # the 1.5x crop puts within 0.75 box sides of the box centre; the seeded
+    # synthetic head's output is not bounded (its farthest landmark on an
+    # all-black crop is printed, in box sides), so the share within 1.5 box
+    # sides is reported, on the path's boxes and on boxes of 40-400 px inside
+    # the frames, and the farthest in-frame face is recomputed by the float32
+    # head on the CPU: the card's bf16 heads must put it as far.
+    hd_dev = torch.from_numpy(hd_batch).to(dev)
+    faces0 = [f for fl in h_results[0][0] for f in fl]
+    h_boxes = torch.from_numpy(np.stack([f.bbox for f in faces0]).astype(np.float32)).to(dev)
+    h_idx = torch.tensor([b for b, fl in enumerate(h_results[0][0]) for _ in fl], device=dev)
+    lm_size = ATTR_SIZES[1]
+    with torch.inference_mode():
+        crops = warp2pass.warp_boxes_two_pass(hd_dev, h_idx, h_boxes, lm_size)
+        lm_norm = hengine._ensure_attr_models()[1](genderage.preprocess(crops)).float()
+        m_inv = warp2pass.boxes_to_affines(h_boxes, lm_size)
+        lm_want = (torch.einsum("mij,mkj->mki", m_inv[:, :, :2], (lm_norm + 1.0) * lm_size / 2)
+                   + m_inv[:, None, :, 2]).cpu().numpy()
+    lm_path = np.stack([f.landmark_2d_106 for f in faces0])
+    lm_err = float(np.abs(lm_path - lm_want).max() / max(1.0, np.abs(lm_want).max()))
+    check(lm_err <= 1e-5, f"hd landmarks differ from the head's output mapped back: {lm_err}")
+
+    def box_sides(boxes, lms):
+        side = np.maximum(np.abs(boxes[:, 2] - boxes[:, 0]), np.abs(boxes[:, 3] - boxes[:, 1]))
+        centre = np.stack([boxes[:, 0] + boxes[:, 2], boxes[:, 1] + boxes[:, 3]], 1) / 2
+        return np.abs(lms - centre[:, None]).max(axis=(1, 2)) / np.maximum(side, 1e-6)
+
+    path_sides = box_sides(np.stack([f.bbox for f in faces0]), lm_path)
+    # how much of each box lies on its frame: what the HUD's fills cover
+    in_frame = []
+    for b, fl in enumerate(h_results[0][0]):
+        fh, fw = HD_SHAPES[b]
+        for f in fl:
+            xs, ys = sorted(f.bbox[0::2]), sorted(f.bbox[1::2])
+            cover = (max(0.0, min(xs[1], fw) - max(xs[0], 0.0))
+                     * max(0.0, min(ys[1], fh) - max(ys[0], 0.0)))
+            in_frame.append(cover / max((xs[1] - xs[0]) * (ys[1] - ys[0]), 1e-6))
+    in_frame = np.asarray(in_frame)
+    box_np, box_idx = in_frame_boxes(np.random.default_rng(6), len(faces0), HD_SHAPES)
+    g_in, _, lm_in = hengine.attributes(hd_dev, box_idx, box_np)
+    in_sides = box_sides(box_np, lm_in)
+    check(set(np.unique(g_in)) <= {0, 1}, f"in-frame genders {np.unique(g_in)}")
+    worst = int(np.argmax(in_sides))
+    with torch.inference_mode():
+        worst_crop = warp2pass.warp_boxes_two_pass(
+            hd_dev, torch.tensor([int(box_idx[worst])], device=dev),
+            torch.from_numpy(box_np[worst:worst + 1]).to(dev), lm_size).cpu()
+        f32_head = load_or_init("landmark_2d_106", landmark106.Landmark106(), 8)
+        worst_f32 = 0.75 * float(f32_head(genderage.preprocess(worst_crop)).abs().max())
+        black_f32 = 0.75 * float(f32_head(genderage.preprocess(
+            torch.zeros_like(worst_crop))).abs().max())
+    check(abs(in_sides[worst] - worst_f32) <= 2.0 ** -5 * worst_f32,
+          f"the farthest in-frame landmark: {in_sides[worst]:.4f} box sides on the card, "
+          f"{worst_f32:.4f} from the float32 head on the CPU")
+    lm_note = (f"landmarks = head output mapped back (rel err {lm_err:.1e}); within 1.5 box "
+               f"sides of the centre: {float((in_sides <= 1.5).mean()):.3f} of {len(box_np)} "
+               f"in-frame boxes (farthest {in_sides[worst]:.4f}, the f32 head on the CPU "
+               f"{worst_f32:.4f}), {float((path_sides <= 1.5).mean()):.3f} of the path's "
+               f"(max {path_sides.max():.3f}; an all-black crop {black_f32:.4f} from the f32 "
+               f"head); the path's boxes lie {float(in_frame.mean()):.3f} "
+               f"on their frames on average, {int((in_frame == 0).sum())} wholly off")
+    k = 0
+    for fl, rows in zip(h_results[0][0], h_results[0][1]):
+        for row in rows:
+            check(row["recognized"] and row["person_id"] == hown[k] and row["similarity"] >= 0.99,
+                  f"hd request 1 face {hown[k]} matched {row['person_id']} at {row['similarity']}")
+            k += 1
+    drawn = sum(not np.array_equal(f, np.ascontiguousarray(g[..., ::-1]))
+                for f, g in zip(hd_requests[0], rgb1))
+    check(drawn == FRAMES, f"the HUD changed {drawn} of {FRAMES} frames")
+    genders = np.bincount([f.gender for fl in h_results[0][0] for f in fl], minlength=2)
+    say(f"[hd] request 1: {k}/{k} faces matched their own id through K1 (min score "
+        f"{min(row['similarity'] for rows in h_results[0][1] for row in rows):.6f}); gender "
+        f"counts {genders.tolist()}; {lm_note}; HUD drawn on {drawn}/{FRAMES} frames")
+    if "--profile" in sys.argv[1:]:
+        profile_request(torch, lambda: [hproc.match_faces(f, fl, "site-1", draw=True)
+                                        for f, fl in zip(hd_requests[1],
+                                                         happ.get_batch(hd_requests[1]))],
+                        "hd request 2")
+
     # ------------------------------------------------- kernels vs plain, card
     # K3 on the path's own ROIs: request 1's 256 slots, as get_batch warped them
     canvases = np.stack([letterbox(f[..., ::-1], cfg.engine.det_size)[0] for f in requests[0]])
@@ -584,6 +876,30 @@ def main() -> int:
         f"{warp_err:.3e} (<= 1e-3); pyramid levels "
         f"{torch.bincount(face_lvl, minlength=4).tolist()}; output pixels with a clamped "
         f"tap {face_clamped:.4f}; ROI pixels read {face_px} of {rois.numel() // rois.shape[3]}")
+
+    # K3 at the attribute heads' sizes: on the hd path's request-1 boxes, and on
+    # boxes of 40-400 px inside its frames (the kernel line's inputs)
+    attr_rois, attr_err = {}, {}
+    for size in ATTR_SIZES:
+        errs, lines = [], []
+        for what, bx, bi in (("path boxes", h_boxes, h_idx),
+                             ("in-frame boxes", torch.from_numpy(box_np).to(dev),
+                              torch.from_numpy(box_idx).to(dev))):
+            with torch.inference_mode():
+                m_inv = warp2pass.boxes_to_affines(bx, size)
+                lvl = warp2pass.pyramid_level(m_inv, size)
+                r_, m_ = warp2pass.extract_rois_from_affines(hd_dev, bi, m_inv, size)
+            err = float((warp_kernel.warp_rois(r_, m_, size)
+                         - warp_kernel.warp_rois_plain(r_, m_, size)).abs().max())
+            check(err <= 1e-3, f"K3 out {size} on the {what}: max abs err {err}")
+            px, clamped = warp_footprint(torch, r_, m_, size)
+            errs.append(err)
+            lines.append(f"{what} M={r_.shape[0]} err {err:.3e}, levels "
+                         f"{torch.bincount(lvl, minlength=4).tolist()}, clamped {clamped:.4f}, "
+                         f"ROI px read {px}")
+            attr_rois[(size, what)] = (r_, m_, px)
+        attr_err[size] = max(errs)
+        say(f"[kernels] K3 out {size} (<= 1e-3): " + "; ".join(lines))
 
     # K1 on the path's gallery, queried with requests 2-3's embeddings
     gal32 = snap.device_matrix
@@ -783,6 +1099,21 @@ def main() -> int:
     path_warp_ms = time_ms(torch, lambda: warp_kernel.warp_rois(path_rois, path_mats), 50)
     path_warp_bound, _ = bound(4 * (path_px * c + m * 6 + m * 112 * 112 * c), warp_ops,
                                "float32")
+    attr_times = {}
+    for size in ATTR_SIZES:
+        r_, m_, px = attr_rois[(size, "in-frame boxes")]
+        pr_, pm_, ppx = attr_rois[(size, "path boxes")]
+        ops = r_.shape[0] * size * size * (30 + 10 * c)
+        bnd, by = bound(4 * (px * c + r_.shape[0] * 6 + r_.shape[0] * size * size * c), ops,
+                        "float32")
+        attr_times[size] = {
+            "ms": time_ms(torch, lambda: warp_kernel.warp_rois(r_, m_, size), 50),
+            "kernel_device_ms": device_ms(torch, lambda: warp_kernel.warp_rois(r_, m_, size)),
+            "plain_ms": time_ms(torch, lambda: warp_kernel.warp_rois_plain(r_, m_, size), 3, 1),
+            "bound_ms": bnd, "bound_by": by,
+            "path_ms": time_ms(torch, lambda: warp_kernel.warp_rois(pr_, pm_, size), 50),
+            "path_bound_ms": bound(4 * (ppx * c + pr_.shape[0] * 6
+                                        + pr_.shape[0] * size * size * c), ops, "float32")[0]}
     path_b = 32  # match_faces matches one frame's 32 slots, bucketed to 32
     q = far[:path_b].contiguous()
     valid_cols = torch.arange(gal32.shape[0], device=dev) < CAPACITY_ROWS
@@ -875,14 +1206,27 @@ def main() -> int:
     kernels = [
         {"name": "warp_rois", "route": "cuda", "source": WARP_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
-         "launches": launches["warp_rois"] + y_launches["warp_rois"],
+         "launches": launches["warp_rois"] + y_launches["warp_rois"]
+         + h_launches["warp_rois"].get(112, 0),
          "max_abs_err": max(warp_err, path_err), "ms": warp_ms,
          "kernel_device_ms": warp_dev_ms, "plain_ms": warp_plain_ms, "bound_ms": warp_bound,
          "bound_by": warp_by,
-         "library_ms": None},
+         "library_ms": None, "out_size": 112},
+    ] + [
+        {"name": f"warp_rois_out{size}", "route": "cuda", "source": WARP_SRC,
+         "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
+         "launches": h_launches["warp_rois"].get(size, 0), "max_abs_err": attr_err[size],
+         "ms": attr_times[size]["ms"], "kernel_device_ms": attr_times[size]["kernel_device_ms"],
+         "plain_ms": attr_times[size]["plain_ms"], "bound_ms": attr_times[size]["bound_ms"],
+         "bound_by": attr_times[size]["bound_by"], "library_ms": None, "out_size": size,
+         "path_ms": attr_times[size]["path_ms"],
+         "path_bound_ms": attr_times[size]["path_bound_ms"]}
+        for size in ATTR_SIZES
+    ] + [
         {"name": "gallery_top1", "route": "cuda", "source": MATCH_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:79",
-         "launches": launches["gallery_top1"] + y_launches["gallery_top1"],
+         "launches": launches["gallery_top1"] + y_launches["gallery_top1"]
+         + h_launches["gallery_top1"],
          "max_abs_err": top1_err["float32"],
          "ms": times[("float32", path_b)], "kernel_device_ms": dev_times[("float32", path_b)],
          "plain_ms": top1_plain_ms, "bound_ms": top1_bound,
@@ -952,6 +1296,19 @@ def main() -> int:
                                  "gallery_setup_ms": y_setup_ms, "peak_memory_mb": y_peak_mb,
                                  "launches": y_launches, "int8_faces_compared": compared,
                                  "request1_under_margin": under_margin}}))
+    say(json.dumps({"hd_path": {"card": card, "requests": REQUESTS, "frames": HD_SHAPES,
+                                "request_ms": h_ms, "get_batch_ms": h_get_ms,
+                                "match_and_hud_ms": h_match_ms, "faces_per_request": h_faces,
+                                "gallery_setup_ms": h_setup_ms, "peak_memory_mb": h_peak_mb,
+                                "launches": h_launches, "letterbox8_ms": lb_ms,
+                                "letterbox8_plain_ms": lb_plain_ms, "yuv_encode8_ms": enc_ms,
+                                "yuv_encode8_numpy_ms": enc_plain_ms,
+                                "host_codec_jpeg": native_jpeg}}))
+    say(f"[times] {card} | K3 out 96 in-frame boxes {attr_times[96]['ms']:.4f} ms (device "
+        f"{attr_times[96]['kernel_device_ms']:.4f}, bound {attr_times[96]['bound_ms'] * 1e3:.2f} "
+        f"us), path boxes {attr_times[96]['path_ms']:.4f} | out 192 {attr_times[192]['ms']:.4f} "
+        f"ms (device {attr_times[192]['kernel_device_ms']:.4f}, bound "
+        f"{attr_times[192]['bound_ms'] * 1e3:.2f} us), path boxes {attr_times[192]['path_ms']:.4f}")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     faulthandler.cancel_dump_traceback_later()

@@ -60,7 +60,7 @@ class EngineConfig:
         if self.packed_stem_impl == "xla":
             raise NotImplementedError(
                 'packed_stem_impl="xla" (the packed stem as plain convs) is '
-                "ROADMAP Queue 1 item 12; use \"unpack\" or \"pallas\"")
+                "ROADMAP Queue 1 item 8; use \"unpack\" or \"pallas\"")
         if self.packed_stem_impl not in ("unpack", "pallas"):
             raise ValueError(f"packed_stem_impl {self.packed_stem_impl!r}")
         if self.stem_kernel not in ("on", "off", "auto"):

@@ -1,4 +1,5 @@
-// K3: two-pass sheared-hat face warp, ROI -> 112x112 crop, for sm_90a.
+// K3: two-pass sheared-hat face warp, ROI -> out x out crop (112 for the
+// embedder, 96 and 192 for the attribute heads), for sm_90a.
 //
 // Replaces the TPU kernel facerecognition_infrenceengine_tpu/ops/
 // warp_pallas.py::warp_rois_pallas (body _warp_kernel).  Same function:

@@ -28,6 +28,7 @@ switches TF32 off for cuDNN and cuBLAS.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -36,9 +37,9 @@ import torch
 from .. import native
 from ..core.config import EngineConfig
 from ..core.device import resolve_device
-from ..models import arcface, scrfd
+from ..models import arcface, genderage, landmark106, scrfd
 from ..models.layers import cast_keep_bn_f32
-from ..models.weights import load_or_init
+from ..models.weights import flatten_tree, load_or_init, load_tree, weights_dir
 from ..ops.align import ARCFACE_DST
 from ..ops.anchors import all_anchor_centers
 from ..ops.boxes import distance2bbox, distance2kps
@@ -46,6 +47,7 @@ from ..ops.matching import l2_normalize
 from ..ops.nms import nms_padded
 from ..ops.stem_kernel import depth_to_space4, fused_stem_s2d4, precompute_fused_stem
 from ..ops.stem_kernel import space_to_depth4
+from ..ops.warp2pass import boxes_to_affines, warp_boxes_two_pass
 from ..ops.warp2pass import warp_faces_two_pass, warp_faces_two_pass_packed
 from ..ops.yuv import yuv420p4_to_rgbp4
 
@@ -81,27 +83,45 @@ class DetectionBatch:
     valid: np.ndarray  # [B, F] bool
 
 
+def _from_variables(name: str, model, variables, seed: int):
+    """A flax variable tree (nested dicts of arrays: ``params``,
+    ``batch_stats`` and any derived collections, which are ignored) loaded
+    into ``model``; with none, ``load_or_init``."""
+    if variables is None:
+        return load_or_init(name, model, seed)
+    flat = flatten_tree({k: v for k, v in variables.items() if k in ("params", "batch_stats")})
+    return load_tree(model, flat)
+
+
 class FaceEngine:
     """Owns the detector and embedder and runs the pipeline on one device.
 
-    Weights come from ``<FRE_WEIGHTS_DIR>/scrfd_<det_arch>.npz`` and
-    ``arcface_<rec_arch>.npz`` when present, else the reference's synthetic
-    weights for ``seed`` (detector) and ``seed + 1`` (embedder).
+    Weights come from ``det_variables`` / ``rec_variables`` (the reference
+    engine's flax variable trees, converted by ``models/weights.from_flax``;
+    its derived collections -- ``stem_pallas``, ``packed_stem``,
+    ``packed_stem_s2d4``, ``int8`` -- are ignored and K4's fold is recomputed
+    from ``params`` + ``batch_stats``), else from
+    ``<FRE_WEIGHTS_DIR>/scrfd_<det_arch>.npz`` and ``arcface_<rec_arch>.npz``
+    when present, else the reference's synthetic weights for ``seed``
+    (detector) and ``seed + 1`` (embedder).  The attribute heads load at the
+    first ``attributes`` call.
     """
 
-    def __init__(self, cfg: EngineConfig | None = None, det_arch: str = "det_10g",
-                 rec_arch: str = "r50", seed: int = 0, device=None):
+    def __init__(self, cfg: EngineConfig | None = None, det_variables=None, rec_variables=None,
+                 det_arch: str = "det_10g", rec_arch: str = "r50", seed: int = 0, device=None):
         self.cfg = cfg or EngineConfig()
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
         if rec_arch not in ("r50", "r18"):
             raise NotImplementedError(
                 f"rec_arch {rec_arch!r}: only r50/r18 are ported "
-                "(MobileFaceNet is ROADMAP Queue 1 item 11)")
+                "(MobileFaceNet is ROADMAP Queue 1 item 4)")
         h, w = self.cfg.det_size
-        detector = load_or_init(f"scrfd_{det_arch}", scrfd.SCRFD(scrfd.CONFIGS[det_arch]), seed)
-        embedder = load_or_init(f"arcface_{rec_arch}", arcface.iresnet50() if rec_arch == "r50"
-                                else arcface.iresnet18(), seed + 1)
+        detector = _from_variables(f"scrfd_{det_arch}", scrfd.SCRFD(scrfd.CONFIGS[det_arch]),
+                                   det_variables, seed)
+        embedder = _from_variables(f"arcface_{rec_arch}", arcface.iresnet50()
+                                   if rec_arch == "r50" else arcface.iresnet18(),
+                                   rec_variables, seed + 1)
         # K4's BN-folded stem weights, folded from the float32 module before
         # the cast (the reference folds from its float32 variables)
         self.stem_width = detector.cfg.stem_width
@@ -117,6 +137,7 @@ class FaceEngine:
         self._centers = all_anchor_centers(h, w, device=self.device)
         self._strides = torch.from_numpy(_stride_rows(h, w)).to(self.device)
         self._dst = torch.from_numpy(ARCFACE_DST * (self.cfg.embed_size / 112.0)).to(self.device)
+        self._attr_models = None  # (genderage, landmark106), at first use
 
     # -------------------------------------------------------------- programs
     def _detect_impl(self, frames_u8: torch.Tensor, det_threshold: float):
@@ -202,6 +223,46 @@ class FaceEngine:
             frames_y24 = torch.cat([frames_y24, black.expand(b, dh - rows, w4, 24)], dim=1)
         return self._fused_packed_impl(yuv420p4_to_rgbp4(frames_y24), det_threshold)
 
+    def _ensure_attr_models(self):
+        """buffalo_l's genderage and 2d106det heads, loaded at first use so the
+        recognition path never pays for them: the synthetic heads
+        (``load_or_init`` seeds 7 and 8, as the reference's) in the engine's
+        dtype, BatchNorm kept f32.  Converted ONNX heads in the weights dir
+        (the reference's exact-graph executor) are not ported: they raise
+        rather than be replaced by the synthetic heads."""
+        if self._attr_models is None:
+            onnx = [os.path.join(weights_dir(), f) for f in ("attr_genderage.onnx",
+                                                            "attr_2d106det.onnx")]
+            if all(os.path.exists(p) for p in onnx):
+                raise NotImplementedError(
+                    f"{onnx}: the exact-graph attribute executor (models/onnx_exec.py + "
+                    "onnxlite.py) is ROADMAP Queue 1 item 3")
+            fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
+            self._attr_models = tuple(
+                cast_keep_bn_f32(load_or_init(name, model, seed), self.device, self.dtype, fmt)
+                for name, model, seed in (("genderage", genderage.GenderAge(), 7),
+                                          ("landmark_2d_106", landmark106.Landmark106(), 8)))
+        return self._attr_models
+
+    def _attributes_impl(self, frames_u8, frame_idx, bboxes):
+        """Gender, age and 106 landmarks of M boxes (frame coordinates): the
+        square window of side max(w, h) * 1.5 around each box, resampled by
+        K3 to each head's input size; gender = argmax(out[:2]), age =
+        round(out[2] * 100), landmarks (out + 1) * size / 2 mapped back
+        through the crop's affine."""
+        ga_model, lm_model = self._ensure_attr_models()
+        ga_size, lm_size = genderage.INPUT_SIZE, landmark106.INPUT_SIZE
+        ga_out = ga_model(genderage.preprocess(
+            warp_boxes_two_pass(frames_u8, frame_idx, bboxes, ga_size, scale_factor=1.5)))
+        lm = lm_model(genderage.preprocess(
+            warp_boxes_two_pass(frames_u8, frame_idx, bboxes, lm_size, scale_factor=1.5)))
+        gender = torch.argmax(ga_out[:, :2], dim=1)
+        age = torch.round(ga_out[:, 2] * 100.0)
+        lm_px = (lm + 1.0) * (lm_size / 2.0)
+        m_inv = boxes_to_affines(bboxes, lm_size, 1.5)
+        lm_src = torch.einsum("mij,mkj->mki", m_inv[:, :, :2], lm_px) + m_inv[:, None, :, 2]
+        return gender.to(torch.int32), age.float(), lm_src
+
     @staticmethod
     def _flatten_fused_outputs(outs) -> torch.Tensor:
         """Pack the five fused outputs into one [B, F, 528] float32 tensor
@@ -220,6 +281,9 @@ class FaceEngine:
 
     # ------------------------------------------------------------- host API
     def _to_device(self, array) -> torch.Tensor:
+        """A host array, or a tensor already uploaded, on the engine's device."""
+        if isinstance(array, torch.Tensor):
+            return array.to(self.device)
         return torch.as_tensor(np.asarray(array)).to(self.device)
 
     @torch.inference_mode()
@@ -246,6 +310,25 @@ class FaceEngine:
         emb = self._embed_impl(self._to_device(frames_u8), self._to_device(pad_idx),
                                self._to_device(pad_kps))
         return emb.cpu().numpy()[:m]
+
+    @torch.inference_mode()
+    def attributes(self, frames_u8, frame_idx, bboxes):
+        """Gender [M] int32, age [M] float32 and landmark_2d_106 [M, 106, 2]
+        of M boxes; frames_u8 [B, H, W, 3] RGB uint8 (host or device), boxes
+        in its coordinates.  M is padded to ``bucket(M)`` with [0, 0, 32, 32]
+        boxes of frame 0, as the reference pads it."""
+        m = len(frame_idx)
+        if m == 0:
+            return (np.zeros(0, np.int32), np.zeros(0, np.float32),
+                    np.zeros((0, 106, 2), np.float32))
+        mb = bucket(m)
+        pad_idx = np.zeros(mb, np.int64)
+        pad_idx[:m] = frame_idx
+        pad_boxes = np.tile(np.array([0, 0, 32, 32], np.float32)[None], (mb, 1))
+        pad_boxes[:m] = bboxes
+        outs = self._attributes_impl(self._to_device(frames_u8), self._to_device(pad_idx),
+                                     self._to_device(pad_boxes))
+        return tuple(o.cpu().numpy()[:m] for o in outs)
 
     @torch.inference_mode()
     def embed_crops(self, crops_u8) -> np.ndarray:

@@ -1,12 +1,18 @@
-"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``) and the
+host imaging library (``csrc/imagecodec.cc``).
 
-One ``nvcc`` call compiles every source for ``sm_90a`` into one shared
-library with a plain C interface, which ``ctypes`` loads.  The library
-lives under the package's ``_build/`` directory, named by a hash of the
-sources and flags, and is built at first use.  A build failure raises:
-nothing falls back to the plain PyTorch versions.
+One ``nvcc`` call compiles every ``.cu`` source for ``sm_90a`` into one
+shared library with a plain C interface, which ``ctypes`` loads.  The host
+codec is a second library, built by the host compiler (``g++``, no nvcc):
+``-ffp-contract=off`` keeps every float operation rounding on its own, and
+the JPEG codec is compiled in (``-DFRE_HAVE_JPEG -ljpeg``) only when a probe
+finds ``jpeglib.h`` and links libjpeg.  Both libraries live under the
+package's ``_build/`` directory, each named by a hash of its sources and
+flags, and are built at first use (a temporary name, then ``os.replace``,
+so concurrent builders never load a partial file).  A build failure raises
+with the compiler's output: nothing falls back to the plain versions.
 
-Every C entry returns ``cudaGetLastError()`` after its launches;
+Every CUDA C entry returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on anything but 0.
 """
 
@@ -38,7 +44,36 @@ SIGNATURES = {
     "fre_fused_stem_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
+# Host codec entry -> (restype, argument types).
+_U8P, _F = ctypes.POINTER(ctypes.c_uint8), ctypes.c_float
+_U8 = ctypes.c_uint8
+_IMG_ARGS = [_U8P, _I, _I, _U8P, _I, _I]  # src, h, w, dst, oh, ow
+HOST_SIGNATURES = {
+    "fre_have_jpeg": (_I, []),
+    "fre_resize_bilinear": (None, _IMG_ARGS),
+    "fre_letterbox": (_F, _IMG_ARGS),
+    "fre_letterbox_s2d4": (_F, _IMG_ARGS),
+    "fre_letterbox_yuv420_s2d4": (_F, _IMG_ARGS),
+    "fre_pack_s2d4": (_I, [_U8P, _I, _I, _U8P]),
+    "fre_pack_yuv420_s2d4": (_I, [_U8P, _I, _I, _U8P]),
+    "fre_fill_rect": (None, [_U8P, _I, _I, _I, _I, _I, _I, _U8, _U8, _U8, _F]),
+    "fre_draw_rect": (None, [_U8P, _I, _I, _I, _I, _I, _I, _I, _U8, _U8, _U8]),
+    "fre_draw_corners": (None, [_U8P, _I, _I, _I, _I, _I, _I, _I, _I, _U8, _U8, _U8]),
+    "fre_draw_text": (None, [_U8P, _I, _I, _I, _I, ctypes.c_char_p, _I, _U8, _U8, _U8]),
+    "fre_draw_bar": (None, [_U8P, _I, _I, _I, _I, _I, _I, _F, _U8, _U8, _U8]),
+}
+JPEG_SIGNATURES = {
+    "fre_jpeg_decode": (_I, [ctypes.c_char_p, ctypes.c_long, _U8P,
+                             ctypes.POINTER(_I), ctypes.POINTER(_I)]),
+    "fre_jpeg_encode": (ctypes.c_long, [_U8P, _I, _I, _I, _U8P, ctypes.c_long]),
+}
+HOST_SOURCE = os.path.join(CSRC, "imagecodec.cc")
+CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-ffp-contract=off"]
+_JPEG_PROBE = "#include <cstdio>\n#include <jpeglib.h>\nint main() { jpeg_std_error(nullptr); }\n"
+
 _lib = None
+_host_lib = None
+_jpeg_flags = None
 build_info: dict = {}  # command, seconds and ptxas report of this process's build
 
 
@@ -71,24 +106,31 @@ def nvcc() -> str:
     return path
 
 
-def build() -> str:
-    """Compile ``csrc/*.cu`` unless this source hash is already built;
-    returns the library path."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
+def _compile(out: str, command, what: str):
+    """Run ``command(tmp)``, a compiler call writing the library to ``tmp``,
+    then move it to ``out`` -> (the command, seconds, compiler output).  A
+    failure raises with the compiler's output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    cmd = command(tmp)
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"{what} failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
-    build_info.update(command=" ".join(cmd), seconds=seconds,
-                      ptxas=proc.stdout + proc.stderr)
+    return " ".join(cmd), seconds, proc.stdout + proc.stderr
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` unless this source hash is already built;
+    returns the library path."""
+    out = library_path()
+    if not os.path.exists(out):
+        cmd, seconds, report = _compile(
+            out, lambda tmp: [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()], "nvcc")
+        build_info.update(command=cmd, seconds=seconds, ptxas=report)
     return out
 
 
@@ -103,6 +145,65 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = loaded
     return _lib
+
+
+def cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler (CXX, g++, c++): the host imaging library "
+                       "cannot be built")
+
+
+def jpeg_flags() -> list:
+    """``["-DFRE_HAVE_JPEG", "-ljpeg"]`` when the compiler finds jpeglib.h
+    and links libjpeg, else ``[]`` (probed once a process)."""
+    global _jpeg_flags
+    if _jpeg_flags is None:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        probe = os.path.join(BUILD_DIR, f"jpeg_probe.{os.getpid()}")
+        proc = subprocess.run([cxx(), "-x", "c++", "-", "-ljpeg", "-o", probe],
+                              input=_JPEG_PROBE, capture_output=True, text=True)
+        if os.path.exists(probe):
+            os.remove(probe)
+        _jpeg_flags = ["-DFRE_HAVE_JPEG", "-ljpeg"] if proc.returncode == 0 else []
+    return _jpeg_flags
+
+
+def host_library_path() -> str:
+    h = hashlib.sha256(" ".join(CXX_FLAGS + jpeg_flags()).encode())
+    with open(HOST_SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libfreimage_{h.hexdigest()[:16]}.so")
+
+
+def build_host() -> str:
+    """Compile ``csrc/imagecodec.cc`` with the host compiler unless this
+    source hash is already built; returns the library path."""
+    out = host_library_path()
+    if not os.path.exists(out):
+        flags = jpeg_flags()
+        cmd, seconds, _ = _compile(
+            out, lambda tmp: [cxx(), *CXX_FLAGS, *flags[:1], HOST_SOURCE, *flags[1:],
+                              "-o", tmp], "the host imaging build")
+        build_info.update(host_command=cmd, host_seconds=seconds)
+    return out
+
+
+def host_lib() -> ctypes.CDLL:
+    """The loaded host imaging library, built first if needed."""
+    global _host_lib
+    if _host_lib is None:
+        loaded = ctypes.CDLL(build_host())
+        sigs = dict(HOST_SIGNATURES)
+        if loaded.fre_have_jpeg():
+            sigs.update(JPEG_SIGNATURES)
+        for name, (restype, argtypes) in sigs.items():
+            fn = getattr(loaded, name)
+            fn.restype, fn.argtypes = restype, argtypes
+        _host_lib = loaded
+    return _host_lib
 
 
 def check(err: int, name: str) -> None:

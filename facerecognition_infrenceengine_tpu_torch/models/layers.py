@@ -51,3 +51,16 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.BatchNorm_0(self.Conv_0(x))
         return torch.relu(x) if self.relu else x
+
+
+class ConvBNPReLU(nn.Module):
+    """ConvBN -> per-channel PReLU (the reference's ``ConvBNPReLU``; the
+    slope is flax's ``PReLU_0/alpha``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(in_ch, out_ch, kernel, stride)
+        self.PReLU_0 = nn.PReLU(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.PReLU_0(self.ConvBN_0(x))

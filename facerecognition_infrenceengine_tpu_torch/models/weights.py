@@ -30,6 +30,17 @@ def weights_dir() -> str:
                           os.path.join(os.path.dirname(__file__), "_weights"))
 
 
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """Nested flax variables (dicts of arrays) -> {``/``-joined path: numpy
+    array}, the ``.npz`` key form."""
+    if not isinstance(tree, dict):
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for k, v in tree.items():
+        out.update(flatten_tree(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+    return out
+
+
 def load_flat(path: str) -> dict:
     """``.npz`` flax tree -> {flax path: numpy array}."""
     with np.load(path) as z:

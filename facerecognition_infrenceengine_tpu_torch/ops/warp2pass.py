@@ -131,6 +131,30 @@ def extract_rois(frames: torch.Tensor, frame_idx: torch.Tensor, kps: torch.Tenso
     return extract_rois_from_affines(frames, frame_idx, m_inv, out_size, levels)
 
 
+def boxes_to_affines(bboxes: torch.Tensor, out_size: int,
+                     scale_factor: float = 1.5) -> torch.Tensor:
+    """dst->src affines [M, 2, 3] of square bbox-centred crops (no rotation):
+    side max(w, h) * scale_factor around the box centre, insightface's
+    ``face_align.transform`` for the attribute heads.  bboxes [M, 4] xyxy."""
+    x1, y1, x2, y2 = bboxes.float().unbind(1)
+    cx, cy = (x1 + x2) / 2.0, (y1 + y2) / 2.0
+    s = torch.maximum(x2 - x1, y2 - y1) * scale_factor / out_size  # source px a crop px
+    zeros = torch.zeros_like(s)
+    tx = cx - s * (out_size / 2.0)
+    ty = cy - s * (out_size / 2.0)
+    return torch.stack([torch.stack([s, zeros, tx], 1), torch.stack([zeros, s, ty], 1)], 1)
+
+
+def warp_boxes_two_pass(frames: torch.Tensor, frame_idx: torch.Tensor, bboxes: torch.Tensor,
+                        out_size: int, scale_factor: float = 1.5,
+                        levels: int = 4) -> torch.Tensor:
+    """Square bbox-centred crops (the attribute heads' inputs) through the
+    same pyramid ROI and K3: [M, out_size, out_size, C] float32."""
+    m_inv = boxes_to_affines(bboxes, out_size, scale_factor)
+    rois, mats = extract_rois_from_affines(frames, frame_idx, m_inv, out_size, levels)
+    return warp_rois(rois, mats, out_size)
+
+
 def warp_faces_two_pass(frames: torch.Tensor, frame_idx: torch.Tensor, kps: torch.Tensor,
                         out_size: int = 112, dst: torch.Tensor | None = None,
                         levels: int = 4) -> torch.Tensor:

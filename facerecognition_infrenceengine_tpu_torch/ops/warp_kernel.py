@@ -7,10 +7,13 @@ two non-zero hat taps in each pass, no intermediate).
 
 ``warp_rois`` launches the kernel for CUDA tensors and runs the plain
 version, ``warp_rois_plain``, for CPU tensors.  ``warp_rois.launches``
-counts kernel launches.
+counts kernel launches, and ``warp_rois.launches_by_size`` the same launches
+by crop size (112 for the embedder, 96 and 192 for the attribute heads).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -87,7 +90,9 @@ def warp_rois(rois: torch.Tensor, mats: torch.Tensor, out_size: int = 112) -> to
                                     m, r, c, out_size, stream)
     build.check(err, "fre_warp_rois")
     warp_rois.launches += 1
+    warp_rois.launches_by_size[out_size] += 1
     return out
 
 
 warp_rois.launches = 0
+warp_rois.launches_by_size = Counter()

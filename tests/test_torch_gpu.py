@@ -59,6 +59,31 @@ def test_warp_kernel_matches_plain(cuda):
     assert (got - want).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("out_size", [96, 192])
+def test_warp_kernel_matches_plain_at_attribute_sizes(cuda, out_size):
+    """K3 at the attribute heads' crop sizes (genderage 96, landmark 192)
+    on bbox-centred windows through the pyramid: small, ROI-sized, larger
+    than the frame and degenerate boxes."""
+    rng = np.random.default_rng(2)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 1088, 1920, 3), dtype=np.uint8))
+    boxes = torch.tensor([[10, 20, 60, 90], [100, 50, 300, 250], [-50, -40, 2400, 1300],
+                          [0, 0, 32, 32], [5, 5, 4, 4], [1800, 1000, 1930, 1100],
+                          [30, 30, 156, 156], [400, 300, 900, 800]], dtype=torch.float32)
+    fidx = torch.tensor([0, 1, 0, 1, 0, 1, 0, 1])
+    m_inv = warp2pass.boxes_to_affines(boxes.to(cuda), out_size)
+    rois, mats = warp2pass.extract_rois_from_affines(frames.to(cuda), fidx.to(cuda), m_inv,
+                                                     out_size)
+    before = warp_kernel.warp_rois.launches
+    got = warp2pass.warp_boxes_two_pass(frames.to(cuda), fidx.to(cuda), boxes.to(cuda), out_size)
+    torch.cuda.synchronize()
+    assert warp_kernel.warp_rois.launches == before + 1
+    assert got.shape == (8, out_size, out_size, 3)
+    want = warp_kernel.warp_rois_plain(rois, mats, out_size)
+    assert (got - want).abs().max().item() <= 1e-3
+    cpu = warp2pass.warp_boxes_two_pass(frames, fidx, boxes, out_size)
+    assert (got.cpu() - cpu).abs().max().item() <= 1e-3
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,nv", [(1, 4096, 4000), (37, 3000, 2999), (256, 8192, 8192),
                                     (5, 1024, 0), (33, 5000, 4999), (64, 65536, 50000)])

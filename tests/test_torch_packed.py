@@ -17,6 +17,7 @@ from facerecognition_infrenceengine_tpu.ops.align import ARCFACE_DST
 from facerecognition_infrenceengine_tpu.ops.align import _invert_affine as jax_invert
 from facerecognition_infrenceengine_tpu.ops.align import umeyama_similarity as jax_umeyama
 from facerecognition_infrenceengine_tpu_torch import native
+from facerecognition_infrenceengine_tpu_torch.native import plain
 from facerecognition_infrenceengine_tpu_torch.ops import stem_kernel, warp2pass, warp_kernel, yuv
 
 from test_torch_warp import _assert_path_close, _faces, kps_for, smooth_frame
@@ -164,8 +165,9 @@ def test_pack_yuv420_bit_identical_to_cpp_on_every_color():
     assert jax_native.have_native(), "the reference's C++ imaging library did not build"
     for i in range(8):
         img = _every_rgb_row_block(i)
-        np.testing.assert_array_equal(native.pack_yuv420_s2d4(img),
-                                      jax_native.pack_yuv420_s2d4(img))
+        want = jax_native.pack_yuv420_s2d4(img)
+        np.testing.assert_array_equal(native.pack_yuv420_s2d4(img), want)
+        np.testing.assert_array_equal(plain.pack_yuv420_s2d4_plain(img), want)
 
 
 def test_host_packers_match_reference():
@@ -178,6 +180,9 @@ def test_host_packers_match_reference():
     want, want_scale = jax_native.letterbox_yuv420_s2d4(img, 640, 640)
     assert scale == want_scale == 1.0
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        native.letterbox_yuv420_s2d4(rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8),
-                                     640, 640)
+    # a 720p camera: the resizing letterbox, as the reference's
+    hd = rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+    got, scale = native.letterbox_yuv420_s2d4(hd, 640, 640)
+    want, want_scale = jax_native.letterbox_yuv420_s2d4(hd, 640, 640)
+    assert scale == want_scale == 0.5
+    np.testing.assert_array_equal(got, want)

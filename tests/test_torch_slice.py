@@ -73,7 +73,8 @@ def test_face_analysis_and_match_decisions_match_reference(engines, frames_bgr):
     jax_app = JaxFaceAnalysis(cfg=JaxEngineConfig(**KW), engine=jax_engine,
                               allowed_modules=("detection", "recognition"))
     jax_app.det_thresh = THRESH
-    app = FaceAnalysis(cfg=EngineConfig(**KW), engine=engine)
+    app = FaceAnalysis(cfg=EngineConfig(**KW), engine=engine,
+                       allowed_modules=("detection", "recognition"))
     app.prepare(det_thresh=THRESH)
     want_faces = jax_app.get_batch(frames_bgr)
     got_faces = app.get_batch(frames_bgr)
@@ -91,7 +92,7 @@ def test_face_analysis_and_match_decisions_match_reference(engines, frames_bgr):
     matrix = np.concatenate([enrolled, distractors])
     matrix /= np.linalg.norm(matrix, axis=1, keepdims=True)
     ids = [f"p{i}" for i in range(len(matrix))]
-    meta = {pid: {"type": "employee", "name": pid} for pid in ids}
+    meta = {pid: {"type": "employee", "name": pid, "employeeId": pid.upper()} for pid in ids}
     # threshold between self-matches (~1) and the other faces' best scores
     others = np.stack([f.normed_embedding for f in want_faces[1]]) @ enrolled.T
     threshold = (1.0 + float(others.max())) / 2
@@ -112,7 +113,7 @@ def test_face_analysis_and_match_decisions_match_reference(engines, frames_bgr):
     recognized = 0
     for frame, gf, wf in zip(frames_bgr, got_faces, want_faces):
         _, want = jax_proc.match_faces(frame, wf, "c1", draw=False)
-        _, got = proc.match_faces(frame, gf, "c1")
+        _, got = proc.match_faces(frame, gf, "c1", draw=False)
         assert [r["person_id"] for r in got] == [r["person_id"] for r in want]
         assert [r["recognized"] for r in got] == [r["recognized"] for r in want]
         np.testing.assert_allclose([r["similarity"] for r in got],
@@ -120,12 +121,16 @@ def test_face_analysis_and_match_decisions_match_reference(engines, frames_bgr):
         recognized += sum(r["recognized"] for r in got)
     assert recognized == len(want_faces[0])  # each enrolled face finds itself
     assert len(want_faces[1]) > 0
-    # the per-frame entry point: get() then match_faces()
-    _, via_get = proc.recognize_faces(frames_bgr[0], "c1")
+    # the per-frame entry point: get() then match_faces(), which draws the HUD
+    drawn, via_get = proc.recognize_faces(frames_bgr[0].copy(), "c1")
     _, want = jax_proc.match_faces(frames_bgr[0], want_faces[0], "c1", draw=False)
     assert [r["person_id"] for r in via_get] == [r["person_id"] for r in want]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        proc.match_faces(frames_bgr[0], got_faces[0], "c1", draw=True)
+    assert not np.array_equal(drawn, frames_bgr[0])
+    # draw=True: the same faces give the reference's HUD, byte for byte
+    for frame, wf in zip(frames_bgr, want_faces):
+        want_frame, _ = jax_proc.match_faces(frame.copy(), wf, "c1", draw=True)
+        got_frame, _ = proc.match_faces(frame.copy(), wf, "c1", draw=True)
+        np.testing.assert_array_equal(got_frame, want_frame)
 
 
 def test_letterbox_matches_reference_at_unit_scale():
@@ -135,15 +140,31 @@ def test_letterbox_matches_reference_at_unit_scale():
     got, scale = letterbox(rgb, (640, 640))
     assert scale == want_scale == 1.0
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        letterbox(np.zeros((720, 1280, 3), np.uint8), (640, 640))
+    # a 720p camera resizes onto the canvas, as the reference's does
+    hd = np.random.default_rng(4).integers(0, 256, (720, 1280, 3), dtype=np.uint8)
+    want, want_scale = jax_letterbox(hd, (640, 640))
+    got, scale = letterbox(hd, (640, 640))
+    assert scale == want_scale == 0.5
+    np.testing.assert_array_equal(got, want)
 
 
-def test_unported_packs_and_modules_raise():
+def test_unported_packs_and_modules_raise(engines, frames_bgr):
+    """MobileFaceNet still raises; the genderage module gives the
+    reference's gender and age (and no landmarks) on the same frames."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FaceAnalysis(name="mobile_facenet_v1", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaceAnalysis(allowed_modules=("detection", "recognition", "genderage"), device="cpu")
+    jax_engine, engine = engines
+    modules = ("detection", "recognition", "genderage")
+    jax_app = JaxFaceAnalysis(cfg=JaxEngineConfig(**KW), engine=jax_engine,
+                              allowed_modules=modules)
+    jax_app.det_thresh = THRESH
+    app = FaceAnalysis(cfg=EngineConfig(**KW), engine=engine, allowed_modules=modules)
+    app.prepare(det_thresh=THRESH)
+    want, got = jax_app.get_batch(frames_bgr), app.get_batch(frames_bgr)
+    assert [len(f) for f in got] == [len(f) for f in want]
+    for gf, wf in zip(sum(got, []), sum(want, [])):
+        assert (gf.gender, gf.age) == (wf.gender, wf.age) and gf.gender in (0, 1)
+        assert gf.landmark_2d_106 is None and wf.landmark_2d_106 is None
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):

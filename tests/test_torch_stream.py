@@ -75,7 +75,7 @@ def test_config_fields():
     cfg = EngineConfig()
     assert (cfg.stem_kernel, cfg.packed_stem_impl, cfg.stream_transport) == ("off", "unpack", "rgb")
     assert cfg.gallery_dtype == "float32"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         EngineConfig(packed_stem_impl="xla")
     assert not FaceEngine(EngineConfig(**dict(KW, stem_kernel="auto")), device="cpu",
                           **ARCH)._stem_kernel_raw
@@ -150,7 +150,8 @@ def test_face_analysis_yuv_transport_and_int8_decisions_match_reference(engines)
     jax_app = JaxFaceAnalysis(cfg=JaxEngineConfig(**STREAM), engine=ref,
                               allowed_modules=("detection", "recognition"))
     jax_app.det_thresh = THRESH
-    app = FaceAnalysis(cfg=EngineConfig(**STREAM), engine=port["pallas"])
+    app = FaceAnalysis(cfg=EngineConfig(**STREAM), engine=port["pallas"],
+                       allowed_modules=("detection", "recognition"))
     app.prepare(det_thresh=THRESH)
     assert app._yuv_eligible(port["pallas"], frames)
     enc = app.encode_frame(smooth)
@@ -182,7 +183,7 @@ def test_face_analysis_yuv_transport_and_int8_decisions_match_reference(engines)
     np.testing.assert_array_equal(snap.device_matrix.numpy(), np.asarray(ref_snap.device_matrix))
     proc = FaceRecognitionProcessor(galleries, face_app=app, cfg=cfg)
     for frame, gf in zip(frames, got_faces):
-        _, results = proc.match_faces(frame, gf, "c1")
+        _, results = proc.match_faces(frame, gf, "c1", draw=False)
         embs = np.stack([f.normed_embedding for f in gf])
         q = np.zeros((bucket(len(gf)), 512), np.float32)  # the snapshot's batch
         q[:len(gf)] = embs / np.linalg.norm(embs, axis=1, keepdims=True)
@@ -194,5 +195,5 @@ def test_face_analysis_yuv_transport_and_int8_decisions_match_reference(engines)
             for j, v in zip(np.asarray(i_ref)[:len(gf)], np.asarray(v_ref)[:len(gf)])]
         np.testing.assert_array_equal([r["similarity"] for r in results],
                                       np.asarray(v_ref)[:len(gf)])
-    _, own = proc.match_faces(frames[0], got_faces[0], "c1")
+    _, own = proc.match_faces(frames[0], got_faces[0], "c1", draw=False)
     assert all(r["recognized"] for r in own)  # each enrolled face finds itself

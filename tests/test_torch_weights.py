@@ -10,13 +10,20 @@ import pytest
 import torch
 
 from facerecognition_infrenceengine_tpu.models import arcface as jarcface
+from facerecognition_infrenceengine_tpu.models import genderage as jgenderage
+from facerecognition_infrenceengine_tpu.models import landmark106 as jlandmark106
 from facerecognition_infrenceengine_tpu.models import scrfd as jscrfd
 from facerecognition_infrenceengine_tpu.models.weights import (
     flatten_tree, load_or_init as jax_load_or_init, save_variables)
-from facerecognition_infrenceengine_tpu_torch.models import arcface, scrfd, weights
+from facerecognition_infrenceengine_tpu_torch.models import (
+    arcface, genderage, landmark106, scrfd, weights)
 
 
 def _pair(name):
+    if name == "genderage":
+        return jgenderage.GenderAge(), (1, 96, 96, 3), genderage.GenderAge()
+    if name == "landmark_2d_106":
+        return jlandmark106.Landmark106(), (1, 192, 192, 3), landmark106.Landmark106()
     if name.startswith("scrfd_"):
         arch = name[len("scrfd_"):]
         return (jscrfd.SCRFD(jscrfd.CONFIGS[arch]), (1, 64, 64, 3),
@@ -26,7 +33,8 @@ def _pair(name):
     return jm, (1, 112, 112, 3), tm
 
 
-@pytest.mark.parametrize("name,seed", [("scrfd_det_10g", 0), ("arcface_r50", 1)])
+@pytest.mark.parametrize("name,seed", [("scrfd_det_10g", 0), ("arcface_r50", 1),
+                                       ("genderage", 7), ("landmark_2d_106", 8)])
 def test_synthetic_tree_equals_reference_leaf_for_leaf(name, seed):
     jm, shape, tm = _pair(name)
     ref = flatten_tree(jax_load_or_init(name, jm, jnp.zeros(shape), seed))
@@ -37,7 +45,8 @@ def test_synthetic_tree_equals_reference_leaf_for_leaf(name, seed):
         np.testing.assert_array_equal(mine[path], leaf, err_msg=path)
 
 
-@pytest.mark.parametrize("name", ["scrfd_det_10g", "arcface_r50"])
+@pytest.mark.parametrize("name", ["scrfd_det_10g", "arcface_r50", "genderage",
+                                  "landmark_2d_106"])
 def test_from_flax_round_trips_shapes(name):
     _, _, tm = _pair(name)
     flat = weights.synthetic_tree(tm, 3)
@@ -51,9 +60,11 @@ def test_from_flax_round_trips_shapes(name):
         t = tm.state_dict()[key].numpy()
         if t.ndim == 4:
             t = t.transpose(2, 3, 1, 0)
-        elif key.endswith("Dense_0.weight"):
+        elif key.endswith("Dense_0.weight") and hasattr(tm.Dense_0, "flatten_chw"):
             c, h, w = tm.Dense_0.flatten_chw
             t = t.reshape(-1, c, h, w).transpose(2, 3, 1, 0).reshape(h * w * c, -1)
+        elif key.endswith("Dense_0.weight"):  # a Dense after a spatial mean
+            t = t.T
         np.testing.assert_array_equal(t, flat[path], err_msg=path)
 
 
