@@ -53,10 +53,19 @@ Phases, one flushed line each:
    numpy encoder the port used before the host codec was built.
 6. kernels vs their plain PyTorch versions, on the card, at the paths'
    shapes:
-   - K3 at M = 256 on request 1's ROIs (with the path's pyramid-level
-     histogram and the share of output pixels whose taps clamp to the ROI
-     border), and on 256 in-canvas faces: ARCFACE_DST landmarks at scales
-     0.5-4 and rotations up to 0.5 rad inside request 1's 640x480 frames;
+   - K3 at M = 256 read straight from request 1's uint8 atlas (the path's
+     call) on request 1's faces (with the path's pyramid-level histogram
+     and the share of output pixels whose taps clamp to the ROI border),
+     and on 256 in-canvas faces: ARCFACE_DST landmarks at scales 0.5-4 and
+     rotations up to 0.5 rad inside request 1's 640x480 frames; in both
+     uint8 reads (direct and staged) it must equal K3 on the ROIs cut out of
+     the atlas bit for bit, and its plain version within 1e-3; the same on
+     the packed atlas of request 1's yuv frames (the yuv path's faces and
+     the in-canvas faces) and at 96 and 192 on the hd boxes (below); and
+     warp_faces_two_pass, warp_boxes_two_pass (96, 192) and
+     warp_faces_two_pass_packed at the paths' shapes must launch K3 once and
+     form no [M, 192, 192, C] or [M, 48, 48, 16C] ROI tensor (no aten op
+     under them returns one);
    - K1 in f32 and bf16 at B = 1, 32, 256 on the path's gallery with the
      embeddings of requests 2-3 as queries, then on a copy of that gallery
      with exact self-matches and ties planted in the last valid row chunk
@@ -74,17 +83,23 @@ Phases, one flushed line each:
      (torch.profiler) at B = 1, 32, 256;
    - the yuv mix on the card against the CPU on every (Y, U, V) triple;
    - K3 at 96 and 192 on the hd path's request-1 boxes and on 256 boxes of
-     40-400 px inside its frames.
+     40-400 px inside its frames, from one atlas of the native batch.
 7. times: `ms` is the wrapper call as the path makes it, CUDA events over
    back-to-back calls after warm-up (host dispatch included where the host
    is slower than the card); `kernel_device_ms` is the kernels' own device
    time a call, from torch.profiler's device events over the same calls.
    K2 also gives `kernel_device_ms_cold`, its kernel's device time with
    the L2 cache evicted (a 256 MB read) before every call.  Bounds from
-   this run's inputs (K3's bytes are the ROI pixels its taps read, not the
-   whole ROI).  K1's wrapper is also timed at B = 1 with its
-   scratch cache emptied before every call (`ms_uncached`): the per-call
-   allocations and library lookups the cache removes.
+   this run's inputs (K3's bytes are the distinct atlas bytes its taps
+   read, not the whole window; bound_ms_f32_rois counts the float32 ROI
+   pixels they read, the bound of K3 on extracted ROIs).  K3's entries also
+   give kernel_device_ms_staged (kernel_device_ms is the direct uint8
+   read, the default), K3 on the extracted float32 ROIs (ms_f32_rois), and
+   step_ms (window arithmetic + K3 on the atlas) against step_ms_unfused
+   (the same arithmetic, the ROIs cut out of the atlas, float32, and K3 on
+   them), timed in turns, beside atlas_ms.  K1's wrapper is also timed at
+   B = 1 with its scratch cache emptied before every call (`ms_uncached`):
+   the per-call allocations and library lookups the cache removes.
 8. the card line, then {"ok": true, "device": ...} as the last line.
 
     python3 chip_smoke.py --profile
@@ -128,7 +143,7 @@ MATCH_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match.cu"
 MATCH_INT8_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match_int8.cu"
 STEM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/stem.cu"
 # the kernels of csrc/ as torch.profiler names them
-HAND_KERNELS = ("warp_rois_kernel", "top1_f32_kernel", "top1_bf16_kernel", "top1_int8_kernel",
+HAND_KERNELS = ("warp_windows_kernel", "top1_f32_kernel", "top1_bf16_kernel", "top1_int8_kernel",
                 "fused_stem")
 INT8_MARGIN = 5e-3  # f32 top-1 lead over the runner-up above which int8 must agree
 
@@ -187,13 +202,17 @@ def traced(activities):
 def device_events(torch, fn, iters: int, before=None) -> list:
     """torch.profiler's device events (key, count, self device us) over iters
     calls of fn after a warm-up; before(), if given, runs ahead of every call.
-    A trace that recorded no device time is taken again, twice at most (the
-    profiler on the card's machine now and then returns an empty one)."""
+    A trace that recorded no device time, or fewer device events than calls
+    (every call launches a kernel), is taken again, four times at most: the
+    profiler on the card's machine now and then returns empty traces, up to
+    three in a row, or loses most of a trace's events."""
     from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.5)
         with traced([ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -207,11 +226,12 @@ def device_events(torch, fn, iters: int, before=None) -> list:
         rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")]
-        if rows:
+        if sum(count for _, count, _ in rows) >= iters:
             if attempt:
-                say(f"[profile] an empty trace was taken again ({attempt}x)")
+                say(f"[profile] a trace with no or lost device events was taken again "
+                    f"({attempt}x)")
             return rows
-    fail("torch.profiler recorded no device time")
+    fail(f"torch.profiler recorded fewer device events than {iters} calls")
 
 
 def device_ms(torch, fn, iters: int = 20) -> float:
@@ -275,12 +295,16 @@ def profile_request(torch, fn, label: str, top: int = 12) -> None:
         say(f"[profile] {label}:   bn {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
-def warp_footprint(torch, rois, mats, out_size: int = 112):
-    """(ROI pixels that K3's taps read with a non-zero weight, share of output
-    pixels with a row or column coordinate clamped to the ROI border), from
-    the tap arithmetic of csrc/warp.cu."""
-    m, r, _, _ = rois.shape
-    dev = rois.device
+def warp_footprint(torch, mats, r: int, out_size: int = 112, windows=None, atlas_shape=None,
+                   packed: bool = False):
+    """(window pixels that K3's taps read with a non-zero weight, summed over
+    the faces; share of output pixels with a row or column coordinate clamped
+    to the window border; given the windows and the atlas's [B, Ha, Wa, Cs]
+    shape, the distinct atlas pixels those taps read -- what the kernel on
+    the uint8 atlas must move, over C -- else None), from the tap arithmetic
+    of csrc/warp.cu."""
+    m = mats.shape[0]
+    dev = mats.device
     m00, m01, m02 = (mats[:, 0, k, None, None] for k in range(3))
     m10, m11, m12 = (mats[:, 1, k, None, None] for k in range(3))
     m11 = torch.where(m11.abs() < 1e-6, torch.full_like(m11, 1e-6), m11)
@@ -302,7 +326,30 @@ def warp_footprint(torch, rois, mats, out_size: int = 112):
             w = wy * (1.0 - (uc - xf).abs()).clamp(min=0.0)
             flat = (face * r + yf.long().clamp(max=r - 1)) * r + xf.long().clamp(max=r - 1)
             read[flat[w > 0]] = True
-    return int(read.sum()), float(clamped.float().mean())
+    atlas_px = None
+    if windows is not None:
+        b, ha, wa, _ = atlas_shape
+        idx = read.nonzero()[:, 0]
+        f, rem = idx // (r * r), idx % (r * r)
+        w = windows.long()[f]
+        unit = 4 if packed else 1
+        ay = w[:, 1] * unit + rem // r
+        ax = w[:, 2] * unit + rem % r
+        seen = torch.zeros(b * ha * unit * wa * unit, dtype=torch.bool, device=dev)
+        seen[(w[:, 0] * ha * unit + ay) * wa * unit + ax] = True
+        atlas_px = int(seen.sum())
+    return int(read.sum()), float(clamped.float().mean()), atlas_px
+
+
+def in_turns(torch, fa, fb, iters: int = 50):
+    """ms a call of fa and of fb, timed in the order a, b, b, a (CUDA events,
+    back-to-back calls after warm-up): two versions compared on one card in
+    one run."""
+    a1 = time_ms(torch, fa, iters)
+    b1 = time_ms(torch, fb, iters)
+    b2 = time_ms(torch, fb, iters)
+    a2 = time_ms(torch, fa, iters)
+    return (a1 + a2) / 2, (b1 + b2) / 2
 
 
 def in_canvas_kps(rng, n: int, width: int = FRAME_W, height: int = FRAME_H, dst=None):
@@ -835,7 +882,26 @@ def main() -> int:
                         "hd request 2")
 
     # ------------------------------------------------- kernels vs plain, card
-    # K3 on the path's own ROIs: request 1's 256 slots, as get_batch warped them
+    roi = warp2pass.ROI
+
+    def fused_vs_rois(atlas, windows, mats, rois, size, packed, what):
+        """K3 read from the atlas, in both uint8 reads, against K3 on the ROIs
+        cut out of it (bit for bit: the same taps on the same values) and
+        against its plain version (<= 1e-3) -> max abs err."""
+        want = warp_kernel.warp_rois(rois, mats, size)
+        for variant in ("direct", "staged"):
+            got = warp_kernel.warp_windows(atlas, windows, mats, size, packed=packed,
+                                           variant=variant)
+            check(torch.equal(got, want), f"K3 {what} out {size}: warp_windows ({variant}) "
+                  f"differs from warp_rois on the extracted ROIs")
+        err = float((got - warp_kernel.warp_windows_plain(atlas, windows, mats, size, packed))
+                    .abs().max())
+        check(err <= 1e-3, f"K3 {what} out {size} on the atlas: max abs err {err}")
+        return err
+
+    # K3 on the path's own faces: request 1's 256 slots, as get_batch warped
+    # them, read from the uint8 atlas (the path's call) and, as before, on the
+    # ROIs cut out of it
     canvases = np.stack([letterbox(f[..., ::-1], cfg.engine.det_size)[0] for f in requests[0]])
     frames_dev = torch.from_numpy(canvases).to(dev)
     n_frames, slots = FRAMES, cfg.engine.max_faces
@@ -843,43 +909,60 @@ def main() -> int:
     with torch.inference_mode():
         det = engine._detect_impl(frames_dev, DET_THRESH)
         path_kps = det[2].reshape(n_frames * slots, 5, 2).float()
-        path_lvl = warp2pass.pyramid_level(
-            _invert_affine(umeyama_similarity(path_kps, engine._dst)), cfg.engine.embed_size)
+        path_minv = _invert_affine(umeyama_similarity(path_kps, engine._dst))
+        path_lvl = warp2pass.pyramid_level(path_minv, cfg.engine.embed_size)
         path_rois, path_mats = warp2pass.extract_rois(frames_dev, fidx, path_kps,
                                                       cfg.engine.embed_size, dst=engine._dst)
+    atlas_rgb, offs_rgb = warp2pass.build_atlas(frames_dev)
+    path_win, path_wmats = warp2pass.roi_windows(offs_rgb, fidx, path_minv, cfg.engine.embed_size)
+    check(torch.equal(path_wmats, path_mats), "K3 path: roi_windows' affines differ from "
+          "extract_rois'")
     inside = ((path_kps[..., 0] >= 0) & (path_kps[..., 0] < FRAME_W)
               & (path_kps[..., 1] >= 0) & (path_kps[..., 1] < FRAME_H)).float().mean()
     path_err = float((warp_kernel.warp_rois(path_rois, path_mats)
                       - warp_kernel.warp_rois_plain(path_rois, path_mats)).abs().max())
     check(path_err <= 1e-3, f"K3 on the path's ROIs: max abs err {path_err}")
-    path_px, path_clamped = warp_footprint(torch, path_rois, path_mats)
-    say(f"[kernels] K3 path ROIs M={path_rois.shape[0]}: max abs err {path_err:.3e} (<= 1e-3); "
-        f"pyramid levels {torch.bincount(path_lvl, minlength=4).tolist()}; landmarks inside "
-        f"the 640x480 frame {float(inside):.4f}; output pixels with a clamped tap "
-        f"{path_clamped:.4f}; ROI pixels read {path_px} of {path_rois.numel() // path_rois.shape[3]}")
+    path_err = max(path_err, fused_vs_rois(atlas_rgb, path_win, path_mats, path_rois, 112, False,
+                                           "path faces"))
+    path_px, path_clamped, path_apx = warp_footprint(torch, path_mats, roi, 112, path_win,
+                                                     atlas_rgb.shape)
+    say(f"[kernels] K3 path faces M={path_rois.shape[0]}: on the atlas bit-equal to K3 on the "
+        f"extracted ROIs (direct and staged), max abs err {path_err:.3e} (<= 1e-3); pyramid "
+        f"levels {torch.bincount(path_lvl, minlength=4).tolist()}; landmarks inside the "
+        f"640x480 frame {float(inside):.4f}; output pixels with a clamped tap "
+        f"{path_clamped:.4f}; ROI pixels read {path_px} of {path_rois.numel() // path_rois.shape[3]}"
+        f", distinct atlas pixels {path_apx}")
 
     # K3 on in-canvas faces of the same frames, where the taps land inside the ROI
     face_kps = torch.from_numpy(in_canvas_kps(np.random.default_rng(4), n_frames * slots,
                                               dst=ARCFACE_DST)).to(dev)
     with torch.inference_mode():
-        face_lvl = warp2pass.pyramid_level(
-            _invert_affine(umeyama_similarity(face_kps, engine._dst)), cfg.engine.embed_size)
+        face_minv = _invert_affine(umeyama_similarity(face_kps, engine._dst))
+        face_lvl = warp2pass.pyramid_level(face_minv, cfg.engine.embed_size)
         rois, mats = warp2pass.extract_rois(frames_dev, fidx, face_kps,
                                             cfg.engine.embed_size, dst=engine._dst)
+    face_win, face_wmats = warp2pass.roi_windows(offs_rgb, fidx, face_minv, cfg.engine.embed_size)
+    check(torch.equal(face_wmats, mats), "K3 in-canvas: roi_windows' affines differ")
     crops = warp_kernel.warp_rois(rois, mats)
     crops_plain = warp_kernel.warp_rois_plain(rois, mats)
     warp_err = float((crops - crops_plain).abs().max())
-    face_px, face_clamped = warp_footprint(torch, rois, mats)
     check(warp_err <= 1e-3, f"K3 on in-canvas faces: max abs err {warp_err}")
+    warp_err = max(warp_err, fused_vs_rois(atlas_rgb, face_win, mats, rois, 112, False,
+                                           "in-canvas faces"))
+    face_px, face_clamped, face_apx = warp_footprint(torch, mats, roi, 112, face_win,
+                                                     atlas_rgb.shape)
     check(face_clamped < 0.5, f"K3 in-canvas faces: {face_clamped} of output pixels clamp")
-    say(f"[kernels] K3 in-canvas faces M={rois.shape[0]} scales 0.5-4: max abs err "
-        f"{warp_err:.3e} (<= 1e-3); pyramid levels "
+    say(f"[kernels] K3 in-canvas faces M={rois.shape[0]} scales 0.5-4: on the atlas bit-equal "
+        f"to K3 on the extracted ROIs, max abs err {warp_err:.3e} (<= 1e-3); pyramid levels "
         f"{torch.bincount(face_lvl, minlength=4).tolist()}; output pixels with a clamped "
-        f"tap {face_clamped:.4f}; ROI pixels read {face_px} of {rois.numel() // rois.shape[3]}")
+        f"tap {face_clamped:.4f}; ROI pixels read {face_px} of {rois.numel() // rois.shape[3]}, "
+        f"distinct atlas pixels {face_apx}")
 
     # K3 at the attribute heads' sizes: on the hd path's request-1 boxes, and on
-    # boxes of 40-400 px inside its frames (the kernel line's inputs)
-    attr_rois, attr_err = {}, {}
+    # boxes of 40-400 px inside its frames (the kernel line's inputs), from one
+    # atlas of the native batch
+    atlas_hd, offs_hd = warp2pass.build_atlas(hd_dev)
+    attr_sets, attr_err = {}, {}
     for size in ATTR_SIZES:
         errs, lines = [], []
         for what, bx, bi in (("path boxes", h_boxes, h_idx),
@@ -889,17 +972,21 @@ def main() -> int:
                 m_inv = warp2pass.boxes_to_affines(bx, size)
                 lvl = warp2pass.pyramid_level(m_inv, size)
                 r_, m_ = warp2pass.extract_rois_from_affines(hd_dev, bi, m_inv, size)
+            w_, wm_ = warp2pass.roi_windows(offs_hd, bi, m_inv, size)
+            check(torch.equal(wm_, m_), f"K3 out {size} {what}: roi_windows' affines differ")
             err = float((warp_kernel.warp_rois(r_, m_, size)
                          - warp_kernel.warp_rois_plain(r_, m_, size)).abs().max())
             check(err <= 1e-3, f"K3 out {size} on the {what}: max abs err {err}")
-            px, clamped = warp_footprint(torch, r_, m_, size)
+            err = max(err, fused_vs_rois(atlas_hd, w_, m_, r_, size, False, what))
+            px, clamped, apx = warp_footprint(torch, m_, roi, size, w_, atlas_hd.shape)
             errs.append(err)
             lines.append(f"{what} M={r_.shape[0]} err {err:.3e}, levels "
                          f"{torch.bincount(lvl, minlength=4).tolist()}, clamped {clamped:.4f}, "
-                         f"ROI px read {px}")
-            attr_rois[(size, what)] = (r_, m_, px)
+                         f"ROI px read {px}, atlas px {apx}")
+            attr_sets[(size, what)] = (w_, m_, r_, px, apx, bi, m_inv)
         attr_err[size] = max(errs)
-        say(f"[kernels] K3 out {size} (<= 1e-3): " + "; ".join(lines))
+        say(f"[kernels] K3 out {size} on the atlas, bit-equal to K3 on the extracted ROIs "
+            f"(<= 1e-3 of plain): " + "; ".join(lines))
 
     # K1 on the path's gallery, queried with requests 2-3's embeddings
     gal32 = snap.device_matrix
@@ -1014,6 +1101,71 @@ def main() -> int:
             f"abs err {err:.3e} (outputs up to {top:.3f}); 128x64 sw={small_sw} {err2:.3e}; "
             f"36x44 sw={tiny_sw} {err3:.3e}")
 
+    # K3 on the packed atlas of request 1's yuv frames: the yuv path's own faces
+    # and the in-canvas faces, read from the packed uint8 atlas against K3 on
+    # the unpacked ROIs
+    with torch.inference_mode():
+        ydet = yengine._detect_packed_impl(x48, DET_THRESH)
+        y_kps = ydet[2].reshape(n_frames * slots, 5, 2).float()
+        y_minv = _invert_affine(umeyama_similarity(y_kps, yengine._dst))
+    atlas_p, offs_p = warp2pass.build_atlas_packed(x48)
+    packed_sets, lines, packed_err = {}, [], 0.0
+    for what, minv in (("path faces", y_minv), ("in-canvas faces", face_minv)):
+        w_, m_ = warp2pass.roi_windows_packed(offs_p, fidx, minv, 112)
+        r_ = warp2pass.unpack_roi4(warp_kernel.gather_windows(atlas_p, w_, roi // 4))
+        r_ = r_.float().contiguous()
+        err = fused_vs_rois(atlas_p, w_, m_, r_, 112, True, f"packed {what}")
+        px, clamped, apx = warp_footprint(torch, m_, roi, 112, w_, atlas_p.shape, packed=True)
+        packed_sets[what] = (w_, m_, r_, px, apx, minv)
+        packed_err = max(packed_err, err)
+        lines.append(f"{what} M={r_.shape[0]} err {err:.3e}, clamped {clamped:.4f}, ROI px read "
+                     f"{px}, atlas px {apx}")
+    say(f"[kernels] K3 packed out 112 on the atlas, bit-equal to K3 on the unpacked ROIs "
+        f"(<= 1e-3 of plain): " + "; ".join(lines))
+
+    # the warp entry points on the card allocate no ROI stack: no aten op under
+    # them returns a [M, 192, 192, *] or [M, 48, 48, *] tensor (the crops are
+    # the one empty [M, out, out, 3] the wrapper allocates), and each launches
+    # K3 once
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Outputs(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor):
+                    self.seen.append((str(func), tuple(t.shape)))
+            return out
+
+    roi_checks = []
+    for name, size, call in (
+            ("warp_faces_two_pass", 112, lambda: warp2pass.warp_faces_two_pass(
+                frames_dev, fidx, path_kps, 112, dst=engine._dst)),
+            ("warp_boxes_two_pass", 96, lambda: warp2pass.warp_boxes_two_pass(
+                hd_dev, h_idx, h_boxes, 96)),
+            ("warp_boxes_two_pass", 192, lambda: warp2pass.warp_boxes_two_pass(
+                hd_dev, h_idx, h_boxes, 192)),
+            ("warp_faces_two_pass_packed", 112, lambda: warp2pass.warp_faces_two_pass_packed(
+                x48, fidx, y_kps, 112, dst=yengine._dst))):
+        before = warp_kernel.warp_rois.launches
+        with torch.inference_mode(), Outputs() as seen:
+            out_crops = call()
+        torch.cuda.synchronize()
+        m_ = out_crops.shape[0]
+        stacks = [(op, shape) for op, shape in seen.seen if len(shape) == 4 and shape[0] == m_
+                  and shape[1:3] in ((roi, roi), (roi // 4, roi // 4))
+                  and not op.startswith("aten.empty")]
+        check(not stacks, f"{name} out {size} formed a ROI tensor on the card: {stacks}")
+        check(warp_kernel.warp_rois.launches == before + 1, f"{name}: K3 launches "
+              f"{warp_kernel.warp_rois.launches - before} a call")
+        roi_checks.append(f"{name} {size} ({len(seen.seen)} ops)")
+    say(f"[kernels] K3 on the card path forms no ROI tensor and launches once a call: "
+        f"{', '.join(roi_checks)}")
+
     # K2 on the yuv path's int8 gallery, queried with requests 2-3's embeddings
     g8 = ysnap.device_matrix
     gs = ysnap.int8_scale
@@ -1086,34 +1238,75 @@ def main() -> int:
         f" of {mix_diff.numel()} u8 values differ (by at most 1)")
 
     # ----------------------------------------------------------------- times
-    # K3: the in-canvas faces are the kernel line's inputs; the path's own
-    # ROIs (taps mostly clamped) are timed beside them.  Bytes: the ROI
-    # pixels the taps read, the affines, the crops written.
-    m, _, _, c = rois.shape
-    warp_ms = time_ms(torch, lambda: warp_kernel.warp_rois(rois, mats), 50)
-    warp_dev_ms = device_ms(torch, lambda: warp_kernel.warp_rois(rois, mats))
-    warp_plain_ms = time_ms(torch, lambda: warp_kernel.warp_rois_plain(rois, mats), 3, 1)
-    warp_ops = m * 112 * 112 * (30 + 10 * c)
-    warp_bound, warp_by = bound(4 * (face_px * c + m * 6 + m * 112 * 112 * c), warp_ops,
-                                "float32")
-    path_warp_ms = time_ms(torch, lambda: warp_kernel.warp_rois(path_rois, path_mats), 50)
-    path_warp_bound, _ = bound(4 * (path_px * c + m * 6 + m * 112 * 112 * c), warp_ops,
-                               "float32")
-    attr_times = {}
+    # K3 as the paths call it: read from the uint8 atlas (raw or packed).  The
+    # in-canvas faces (112) and the in-frame boxes (96, 192) are the kernel
+    # lines' inputs; the paths' own faces and boxes (taps mostly clamped) are
+    # timed beside them (path_ms).  bound_ms counts the distinct atlas bytes
+    # the taps read, the windows and affines, and the crops written;
+    # bound_ms_f32_rois counts the float32 ROI pixels the taps read instead
+    # (the kernel on extracted ROIs: ms_f32_rois).  step_ms is the window
+    # arithmetic and K3 on the atlas; step_ms_unfused the same arithmetic, the
+    # ROIs cut out of the atlas (float32, unpacked) and K3 on them, i.e.
+    # extract_rois* without the atlas build (atlas_ms); the two in turns.
+    c = 3
+
+    def k3_times(atlas, offsets, fidx_, minv, win, mats_, rois_, px, apx, size, packed, frames_):
+        m_ = win.shape[0]
+        wfn = warp2pass.roi_windows_packed if packed else warp2pass.roi_windows
+        build_fn = warp2pass.build_atlas_packed if packed else warp2pass.build_atlas
+
+        def fused():
+            w, mm = wfn(offsets, fidx_, minv, size)
+            return warp_kernel.warp_windows(atlas, w, mm, size, packed=packed)
+
+        def unfused():
+            w, mm = wfn(offsets, fidx_, minv, size)
+            r = warp_kernel.gather_windows(atlas, w, roi // 4 if packed else roi)
+            r = warp2pass.unpack_roi4(r) if packed else r
+            return warp_kernel.warp_rois(r.float().contiguous(), mm, size)
+
+        def call(variant="direct"):
+            return lambda: warp_kernel.warp_windows(atlas, win, mats_, size, packed=packed,
+                                                    variant=variant)
+
+        def on_rois():
+            return warp_kernel.warp_rois(rois_, mats_, size)
+
+        step, step_unfused = in_turns(torch, fused, unfused)
+        ops = m_ * size * size * (30 + 10 * c)
+        crops = m_ * size * size * c * 4
+        bnd, by = bound(apx * c + m_ * (12 + 24) + crops, ops, "float32")
+        return {"ms": time_ms(torch, call(), 50), "kernel_device_ms": device_ms(torch, call()),
+                "kernel_device_ms_staged": device_ms(torch, call("staged")),
+                "ms_f32_rois": time_ms(torch, on_rois, 50),
+                "kernel_device_ms_f32_rois": device_ms(torch, on_rois),
+                "plain_ms": time_ms(torch, lambda: warp_kernel.warp_windows_plain(
+                    atlas, win, mats_, size, packed), 3, 1),
+                "bound_ms": bnd, "bound_by": by,
+                "bound_ms_f32_rois": bound(4 * (px * c + m_ * 6) + crops, ops, "float32")[0],
+                "step_ms": step, "step_ms_unfused": step_unfused,
+                "atlas_ms": time_ms(torch, lambda: build_fn(frames_), 20)}
+
+    def k3_path(atlas, win, mats_, apx, size, packed):
+        m_ = win.shape[0]
+        return {"path_ms": time_ms(torch, lambda: warp_kernel.warp_windows(
+                    atlas, win, mats_, size, packed=packed), 50),
+                "path_bound_ms": bound(apx * c + m_ * (12 + 24) + m_ * size * size * c * 4,
+                                       m_ * size * size * (30 + 10 * c), "float32")[0]}
+
+    k3 = {112: {**k3_times(atlas_rgb, offs_rgb, fidx, face_minv, face_win, mats, rois, face_px,
+                           face_apx, 112, False, frames_dev),
+                **k3_path(atlas_rgb, path_win, path_mats, path_apx, 112, False)}}
     for size in ATTR_SIZES:
-        r_, m_, px = attr_rois[(size, "in-frame boxes")]
-        pr_, pm_, ppx = attr_rois[(size, "path boxes")]
-        ops = r_.shape[0] * size * size * (30 + 10 * c)
-        bnd, by = bound(4 * (px * c + r_.shape[0] * 6 + r_.shape[0] * size * size * c), ops,
-                        "float32")
-        attr_times[size] = {
-            "ms": time_ms(torch, lambda: warp_kernel.warp_rois(r_, m_, size), 50),
-            "kernel_device_ms": device_ms(torch, lambda: warp_kernel.warp_rois(r_, m_, size)),
-            "plain_ms": time_ms(torch, lambda: warp_kernel.warp_rois_plain(r_, m_, size), 3, 1),
-            "bound_ms": bnd, "bound_by": by,
-            "path_ms": time_ms(torch, lambda: warp_kernel.warp_rois(pr_, pm_, size), 50),
-            "path_bound_ms": bound(4 * (ppx * c + pr_.shape[0] * 6
-                                        + pr_.shape[0] * size * size * c), ops, "float32")[0]}
+        w_, m_, r_, px, apx, bi, minv = attr_sets[(size, "in-frame boxes")]
+        pw, pm, _, _, papx, _, _ = attr_sets[(size, "path boxes")]
+        k3[size] = {**k3_times(atlas_hd, offs_hd, bi, minv, w_, m_, r_, px, apx, size, False,
+                               hd_dev),
+                    **k3_path(atlas_hd, pw, pm, papx, size, False)}
+    w_, m_, r_, px, apx, minv = packed_sets["in-canvas faces"]
+    pw, pm, _, _, papx, _ = packed_sets["path faces"]
+    k3["packed"] = {**k3_times(atlas_p, offs_p, fidx, minv, w_, m_, r_, px, apx, 112, True, x48),
+                    **k3_path(atlas_p, pw, pm, papx, 112, True)}
     path_b = 32  # match_faces matches one frame's 32 slots, bucketed to 32
     q = far[:path_b].contiguous()
     valid_cols = torch.arange(gal32.shape[0], device=dev) < CAPACITY_ROWS
@@ -1203,26 +1396,22 @@ def main() -> int:
     stem_lib_ms = time_ms(torch, library_stem, 20)
     stem_bnd, stem_by = stem_bound(x48, sw, "bfloat16")
 
+    def k3_entry(name, size, n_launches, err, t, **extra):
+        return {"name": name, "route": "cuda", "source": WARP_SRC,
+                "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
+                "launches": n_launches, "max_abs_err": err, "library_ms": None,
+                "out_size": size, **t, **extra}
+
     kernels = [
-        {"name": "warp_rois", "route": "cuda", "source": WARP_SRC,
-         "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
-         "launches": launches["warp_rois"] + y_launches["warp_rois"]
-         + h_launches["warp_rois"].get(112, 0),
-         "max_abs_err": max(warp_err, path_err), "ms": warp_ms,
-         "kernel_device_ms": warp_dev_ms, "plain_ms": warp_plain_ms, "bound_ms": warp_bound,
-         "bound_by": warp_by,
-         "library_ms": None, "out_size": 112},
+        k3_entry("warp_rois", 112, launches["warp_rois"] + h_launches["warp_rois"].get(112, 0),
+                 max(warp_err, path_err), k3[112]),
     ] + [
-        {"name": f"warp_rois_out{size}", "route": "cuda", "source": WARP_SRC,
-         "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
-         "launches": h_launches["warp_rois"].get(size, 0), "max_abs_err": attr_err[size],
-         "ms": attr_times[size]["ms"], "kernel_device_ms": attr_times[size]["kernel_device_ms"],
-         "plain_ms": attr_times[size]["plain_ms"], "bound_ms": attr_times[size]["bound_ms"],
-         "bound_by": attr_times[size]["bound_by"], "library_ms": None, "out_size": size,
-         "path_ms": attr_times[size]["path_ms"],
-         "path_bound_ms": attr_times[size]["path_bound_ms"]}
+        k3_entry(f"warp_rois_out{size}", size, h_launches["warp_rois"].get(size, 0),
+                 attr_err[size], k3[size])
         for size in ATTR_SIZES
     ] + [
+        k3_entry("warp_windows_packed", 112, y_launches["warp_rois"], packed_err, k3["packed"],
+                 packed=True),
         {"name": "gallery_top1", "route": "cuda", "source": MATCH_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:79",
          "launches": launches["gallery_top1"] + y_launches["gallery_top1"]
@@ -1269,9 +1458,7 @@ def main() -> int:
                          "hw": [CANVAS, CANVAS], "stem_width": sw, "ms": ms,
                          "kernel_device_ms": stem_dev[dtype_name], "bound_ms": bnd,
                          "bound_by": by, "max_abs_err": stem_err[dtype_name]})
-    say(f"[times] {card} | K3 M={m} in-canvas faces: {warp_ms:.4f} ms (plain "
-        f"{warp_plain_ms:.3f} ms, bound {warp_bound * 1e3:.2f} us by {warp_by}); path ROIs "
-        f"{path_warp_ms:.4f} ms (bound {path_warp_bound * 1e3:.2f} us) | K1 f32 B={path_b}: "
+    say(f"[times] {card} | K1 f32 B={path_b}: "
         f"{times[('float32', path_b)]:.4f} ms, device {dev_times[('float32', path_b)]:.4f} ms "
         f"(plain {top1_plain_ms:.4f}, library {top1_lib_ms:.4f}, bound "
         f"{top1_bound * 1e3:.2f} us by {top1_by}); bf16 {times[('bfloat16', path_b)]:.4f} ms, "
@@ -1304,11 +1491,17 @@ def main() -> int:
                                 "letterbox8_plain_ms": lb_plain_ms, "yuv_encode8_ms": enc_ms,
                                 "yuv_encode8_numpy_ms": enc_plain_ms,
                                 "host_codec_jpeg": native_jpeg}}))
-    say(f"[times] {card} | K3 out 96 in-frame boxes {attr_times[96]['ms']:.4f} ms (device "
-        f"{attr_times[96]['kernel_device_ms']:.4f}, bound {attr_times[96]['bound_ms'] * 1e3:.2f} "
-        f"us), path boxes {attr_times[96]['path_ms']:.4f} | out 192 {attr_times[192]['ms']:.4f} "
-        f"ms (device {attr_times[192]['kernel_device_ms']:.4f}, bound "
-        f"{attr_times[192]['bound_ms'] * 1e3:.2f} us), path boxes {attr_times[192]['path_ms']:.4f}")
+    for key, t in k3.items():
+        say(f"[times] {card} | K3 {'packed 112' if key == 'packed' else key} on the atlas: "
+            f"{t['ms']:.4f} ms, device {t['kernel_device_ms']:.4f} (the direct read; staged "
+            f"{t['kernel_device_ms_staged']:.4f}), "
+            f"bound {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+            f"({100 * t['bound_ms'] / t['kernel_device_ms']:.0f}%); on f32 ROIs "
+            f"{t['ms_f32_rois']:.4f} ms, device {t['kernel_device_ms_f32_rois']:.4f} (bound "
+            f"{t['bound_ms_f32_rois'] * 1e3:.2f} us); step {t['step_ms']:.4f} ms against "
+            f"{t['step_ms_unfused']:.4f} unfused, atlas build {t['atlas_ms']:.4f}; path "
+            f"{t['path_ms']:.4f} ms (bound {t['path_bound_ms'] * 1e3:.2f} us); plain "
+            f"{t['plain_ms']:.3f} ms")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     faulthandler.cancel_dump_traceback_later()

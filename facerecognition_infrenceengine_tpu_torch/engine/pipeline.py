@@ -3,8 +3,9 @@ aligned crops -> L2-normalized embeddings.
 
 The torch form of ``facerecognition_infrenceengine_tpu/engine/pipeline.py``:
 SCRFD forward -> sigmoid -> decode -> masked top-k -> greedy NMS into
-``max_faces`` fixed slots, then Umeyama -> pyramid atlas -> ROI -> K3 warp
--> IResNet -> L2 normalize, with every shape static per batch size.
+``max_faces`` fixed slots, then Umeyama -> pyramid atlas -> K3 warp (each
+face's ROI window read straight from the atlas) -> IResNet -> L2 normalize,
+with every shape static per batch size.
 ``detect_align_embed_flat`` packs the outputs into one [B, F, 528] tensor
 (boxes 4 | score 1 | kps 10 | valid 1 | emb 512).
 
@@ -47,7 +48,7 @@ from ..ops.matching import l2_normalize
 from ..ops.nms import nms_padded
 from ..ops.stem_kernel import depth_to_space4, fused_stem_s2d4, precompute_fused_stem
 from ..ops.stem_kernel import space_to_depth4
-from ..ops.warp2pass import boxes_to_affines, warp_boxes_two_pass
+from ..ops.warp2pass import boxes_to_affines, build_atlas, warp_boxes_two_pass
 from ..ops.warp2pass import warp_faces_two_pass, warp_faces_two_pass_packed
 from ..ops.yuv import yuv420p4_to_rgbp4
 
@@ -252,10 +253,11 @@ class FaceEngine:
         through the crop's affine."""
         ga_model, lm_model = self._ensure_attr_models()
         ga_size, lm_size = genderage.INPUT_SIZE, landmark106.INPUT_SIZE
-        ga_out = ga_model(genderage.preprocess(
-            warp_boxes_two_pass(frames_u8, frame_idx, bboxes, ga_size, scale_factor=1.5)))
-        lm = lm_model(genderage.preprocess(
-            warp_boxes_two_pass(frames_u8, frame_idx, bboxes, lm_size, scale_factor=1.5)))
+        atlas = build_atlas(frames_u8)  # one pyramid for both crop sizes
+        ga_out = ga_model(genderage.preprocess(warp_boxes_two_pass(
+            frames_u8, frame_idx, bboxes, ga_size, scale_factor=1.5, atlas=atlas)))
+        lm = lm_model(genderage.preprocess(warp_boxes_two_pass(
+            frames_u8, frame_idx, bboxes, lm_size, scale_factor=1.5, atlas=atlas)))
         gender = torch.argmax(ga_out[:, :2], dim=1)
         age = torch.round(ga_out[:, 2] * 100.0)
         lm_px = (lm + 1.0) * (lm_size / 2.0)

@@ -35,7 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argument types (pointers and the stream as c_void_p).
 SIGNATURES = {
-    "fre_warp_rois": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # atlas, windows, mats, out, m, b, ha, wa, c, r, out_size, is_u8, packed, variant, stream
+    "fre_warp_windows": [_P, _P, _P, _P, *[_I] * 10, _P],
+    "fre_warp_windows_stage_rows": [],
     "fre_gallery_top1": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "fre_gallery_top1_rows_per_block": [],
     "fre_gallery_top1_int8": [_P, _P, ctypes.c_float, _I, _I, _P, _P, _P, _P, _P, _P],

@@ -4,8 +4,11 @@ The torch form of ``facerecognition_infrenceengine_tpu/ops/warp2pass.py``
 (raw-layout path, and the s2d4-packed path of the streaming transports).
 Faces larger than the static ROI window sample from an
 average-pool pyramid level chosen per face, so every face is one
-[ROI, ROI, C] window plus a dst->ROI affine, and the warp itself
-(``ops/warp_kernel.warp_rois``, K3) sees one static shape.
+[ROI, ROI, C] window of the atlas plus a dst->ROI affine
+(``roi_windows``), and the warp itself (``ops/warp_kernel.warp_windows``,
+K3) reads each window straight from the atlas: no ROI tensor is formed on
+the card.  ``extract_rois*`` still cut the ROIs out, for the tests and
+for comparison.
 
 The pyramid is kept as one atlas per frame, levels side by side: uint8
 input gives a uint8 atlas whose levels are integer sums rounded half up
@@ -14,13 +17,14 @@ input gives a uint8 atlas whose levels are integer sums rounded half up
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .align import ARCFACE_DST, _invert_affine, umeyama_similarity
 from .stem_kernel import depth_to_space4, space_to_depth4  # both: the s2d4 layout
-from .warp_kernel import warp_rois
+from .warp_kernel import ROI, gather_windows, warp_windows  # ROI: each face's window side
 
-ROI = 192  # static ROI window (source pixels) per face, per pyramid level
 HALO = 3.0  # source pixels beyond the crop's exact axis-aligned extent
 
 
@@ -85,6 +89,64 @@ def pyramid_level(m_inv: torch.Tensor, out_size: int, levels: int = 4,
     return torch.clamp(lvl_f.long(), 0, levels - 1)
 
 
+@functools.lru_cache(maxsize=64)
+def _level_tables_on(offsets: tuple, device: torch.device):
+    return tuple(torch.tensor([o[k] for o in offsets], dtype=torch.int64, device=device)
+                 for k in range(3))
+
+
+def _level_tables(offsets, device):
+    """(x_off, lw, lh) of every atlas level as three int64 tensors, kept per
+    (offsets, device): a host->device copy of them at every warp call would
+    make the host wait for the card."""
+    return _level_tables_on(tuple(offsets), torch.device(device))
+
+
+def _windows(offsets, frame_idx, m_inv, out_size, levels, halo, unit):
+    """Per face: the pyramid level, the window origin on a grid of ``unit``
+    level pixels (1 raw, 4 packed; round half to even), clamped into the
+    level, and the dst->window affine in level-raw pixels.  Returns
+    (windows [M, 3] int32 (frame, row origin, column origin) in atlas units,
+    mats [M, 2, 3] float32)."""
+    x_offs, lws, lhs = _level_tables(offsets, m_inv.device)
+    side = ROI // unit
+    m_inv = m_inv.float()
+    m00, m01, m02 = m_inv[:, 0, 0], m_inv[:, 0, 1], m_inv[:, 0, 2]
+    m10, m11, m12 = m_inv[:, 1, 0], m_inv[:, 1, 1], m_inv[:, 1, 2]
+    lvl = pyramid_level(m_inv, out_size, levels, halo=halo)
+    half = out_size / 2
+    cx = m00 * half + m01 * half + m02
+    cy = m10 * half + m11 * half + m12
+    # Level pixel i averages source pixels [s*i, s*i + s): its center is at
+    # source coordinate s*i + (s-1)/2.
+    s = torch.exp2(lvl.float())
+    shift = (s - 1.0) / 2.0
+    # |unit * x0 - ideal origin| <= unit / 2 raw pixels (packed: inside HALO_P)
+    x0 = torch.round(((cx - shift) / s - ROI / 2) / float(unit)).long()
+    y0 = torch.round(((cy - shift) / s - ROI / 2) / float(unit)).long()
+    x0 = torch.minimum(torch.clamp(x0, min=0), lws[lvl] - side)
+    y0 = torch.minimum(torch.clamp(y0, min=0), lhs[lvl] - side)
+    lin = m_inv[:, :, :2] / s[:, None, None]
+    trans = ((m_inv[:, :, 2] - shift[:, None]) / s[:, None]
+             - float(unit) * torch.stack([x0, y0], 1).float())
+    mats = torch.cat([lin, trans[:, :, None]], dim=2)
+    windows = torch.stack([frame_idx.to(m_inv.device).long(), y0, x_offs[lvl] + x0], 1)
+    return windows.int().contiguous(), mats.contiguous()
+
+
+def roi_windows(offsets, frame_idx: torch.Tensor, m_inv: torch.Tensor, out_size: int,
+                levels: int = 4):
+    """Per-face ROI window of ``build_atlas``'s atlas + dst->ROI affine,
+    pyramid level pre-selected.
+
+    offsets: ``build_atlas``'s level offsets; frame_idx [M]; m_inv [M, 2, 3]
+    dst->frame affines.  Returns (windows [M, 3] int32: frame, row origin,
+    column origin of each face's ROI x ROI window in the atlas; mats
+    [M, 2, 3] float32 dst -> window coordinates).
+    """
+    return _windows(offsets, frame_idx, m_inv, out_size, levels, HALO, 1)
+
+
 def extract_rois_from_affines(frames: torch.Tensor, frame_idx: torch.Tensor,
                               m_inv: torch.Tensor, out_size: int, levels: int = 4):
     """Per-face ROI window + dst->ROI affine, pyramid level pre-selected.
@@ -93,33 +155,8 @@ def extract_rois_from_affines(frames: torch.Tensor, frame_idx: torch.Tensor,
     Returns (rois [M, ROI, ROI, C] float32, mats [M, 2, 3] float32).
     """
     atlas, offsets = build_atlas(frames, levels)
-    dev = frames.device
-    x_offs = torch.tensor([o[0] for o in offsets], dtype=torch.int64, device=dev)
-    lws = torch.tensor([o[1] for o in offsets], dtype=torch.int64, device=dev)
-    lhs = torch.tensor([o[2] for o in offsets], dtype=torch.int64, device=dev)
-    m_inv = m_inv.float()
-    m00, m01, m02 = m_inv[:, 0, 0], m_inv[:, 0, 1], m_inv[:, 0, 2]
-    m10, m11, m12 = m_inv[:, 1, 0], m_inv[:, 1, 1], m_inv[:, 1, 2]
-    lvl = pyramid_level(m_inv, out_size, levels)
-    half = out_size / 2
-    cx = m00 * half + m01 * half + m02
-    cy = m10 * half + m11 * half + m12
-    # Level pixel i averages source pixels [s*i, s*i + s): its center is at
-    # source coordinate s*i + (s-1)/2.
-    s = torch.exp2(lvl.float())
-    shift = (s - 1.0) / 2.0
-    x0 = torch.clamp(torch.round((cx - shift) / s - ROI / 2).long(), min=0)
-    x0 = torch.minimum(x0, lws[lvl] - ROI)
-    y0 = torch.clamp(torch.round((cy - shift) / s - ROI / 2).long(), min=0)
-    y0 = torch.minimum(y0, lhs[lvl] - ROI)
-    ar = torch.arange(ROI, device=dev)
-    rows = (y0[:, None] + ar)[:, :, None]
-    cols = (x_offs[lvl] + x0)[:, None, None] + ar[None, None, :]
-    rois = atlas[frame_idx.long()[:, None, None], rows, cols].float()
-    lin = m_inv[:, :, :2] / s[:, None, None]
-    trans = (m_inv[:, :, 2] - shift[:, None]) / s[:, None] - torch.stack([x0, y0], 1).float()
-    mats = torch.cat([lin, trans[:, :, None]], dim=2)
-    return rois.contiguous(), mats.contiguous()
+    windows, mats = roi_windows(offsets, frame_idx, m_inv, out_size, levels)
+    return gather_windows(atlas, windows, ROI).float().contiguous(), mats
 
 
 def extract_rois(frames: torch.Tensor, frame_idx: torch.Tensor, kps: torch.Tensor,
@@ -147,12 +184,15 @@ def boxes_to_affines(bboxes: torch.Tensor, out_size: int,
 
 def warp_boxes_two_pass(frames: torch.Tensor, frame_idx: torch.Tensor, bboxes: torch.Tensor,
                         out_size: int, scale_factor: float = 1.5,
-                        levels: int = 4) -> torch.Tensor:
+                        levels: int = 4, atlas=None) -> torch.Tensor:
     """Square bbox-centred crops (the attribute heads' inputs) through the
-    same pyramid ROI and K3: [M, out_size, out_size, C] float32."""
+    same pyramid windows and K3: [M, out_size, out_size, C] float32.
+    atlas: ``build_atlas(frames, levels)``'s result, when the caller has
+    built it already (one atlas for several crop sizes)."""
     m_inv = boxes_to_affines(bboxes, out_size, scale_factor)
-    rois, mats = extract_rois_from_affines(frames, frame_idx, m_inv, out_size, levels)
-    return warp_rois(rois, mats, out_size)
+    atlas, offsets = build_atlas(frames, levels) if atlas is None else atlas
+    windows, mats = roi_windows(offsets, frame_idx, m_inv, out_size, levels)
+    return warp_windows(atlas, windows, mats, out_size)
 
 
 def warp_faces_two_pass(frames: torch.Tensor, frame_idx: torch.Tensor, kps: torch.Tensor,
@@ -163,16 +203,21 @@ def warp_faces_two_pass(frames: torch.Tensor, frame_idx: torch.Tensor, kps: torc
     frames [B, H, W, C] uint8 or float (H, W divisible by 2**(levels-1));
     frame_idx [M]; kps [M, 5, 2] landmarks in frame coordinates.
     Returns [M, out_size, out_size, C] float32 crops, through K3 on the card
-    and its plain version on the CPU.
+    (read straight from the atlas) and its plain version on the CPU.
     """
-    rois, mats = extract_rois(frames, frame_idx, kps, out_size, dst, levels)
-    return warp_rois(rois, mats, out_size)
+    if dst is None:
+        dst = torch.from_numpy(ARCFACE_DST) * (out_size / 112.0)
+    m_inv = _invert_affine(umeyama_similarity(kps, dst.to(frames.device)))
+    atlas, offsets = build_atlas(frames, levels)
+    windows, mats = roi_windows(offsets, frame_idx, m_inv, out_size, levels)
+    return warp_windows(atlas, windows, mats, out_size)
 
 
 # ---------------------------------------------------------------------------
 # s2d4-packed frames [B, H/4, W/4, 16C] (channel (p*4 + q)*C + c holds raw
-# pixel (4Y+p, 4X+q, c)): the pyramid atlas is built and cut in packed layout,
-# and each face's small packed ROI is unpacked to raw layout before K3.
+# pixel (4Y+p, 4X+q, c)): the pyramid atlas is built in packed layout, each
+# face's window origin lies on the packed grid, and K3 reads the packed
+# window as it lies.
 # ---------------------------------------------------------------------------
 
 HALO_P = 6.0  # bilinear tap (1) + packed ROI-origin rounding (2) + slack
@@ -244,44 +289,29 @@ def build_atlas_packed(frames_p4: torch.Tensor, levels: int = 4):
     return torch.cat(cols, dim=2), offsets
 
 
+def roi_windows_packed(offsets, frame_idx: torch.Tensor, m_inv: torch.Tensor,
+                       out_size: int, levels: int = 4):
+    """``roi_windows`` on ``build_atlas_packed``'s atlas: the affines are in
+    raw frame coordinates, the window origins are quantized to the packed
+    grid (round half to even) and the per-face affine absorbs the shift.
+
+    Returns (windows [M, 3] int32 in packed units, mats [M, 2, 3] float32
+    mapping dst -> level-raw window coordinates).
+    """
+    return _windows(offsets, frame_idx, m_inv, out_size, levels, HALO_P, 4)
+
+
 def extract_rois_packed(frames_p4: torch.Tensor, frame_idx: torch.Tensor,
                         m_inv: torch.Tensor, out_size: int, levels: int = 4):
-    """``extract_rois_from_affines`` on packed frames: the affines are in raw
-    frame coordinates, the ROI origins are quantized to the packed grid
-    (round half to even) and the per-face affine absorbs the shift.
+    """``extract_rois_from_affines`` on packed frames, through
+    ``roi_windows_packed``.
 
     Returns (rois [M, ROI/4, ROI/4, 16C] in the frames' dtype, mats [M, 2, 3]
     float32 mapping dst -> level-raw ROI coordinates).
     """
     atlas, offsets = build_atlas_packed(frames_p4, levels)
-    dev = frames_p4.device
-    proi = ROI // 4
-    x_offs = torch.tensor([o[0] for o in offsets], dtype=torch.int64, device=dev)
-    lws = torch.tensor([o[1] for o in offsets], dtype=torch.int64, device=dev)
-    lhs = torch.tensor([o[2] for o in offsets], dtype=torch.int64, device=dev)
-    m_inv = m_inv.float()
-    m00, m01, m02 = m_inv[:, 0, 0], m_inv[:, 0, 1], m_inv[:, 0, 2]
-    m10, m11, m12 = m_inv[:, 1, 0], m_inv[:, 1, 1], m_inv[:, 1, 2]
-    lvl = pyramid_level(m_inv, out_size, levels, halo=HALO_P)
-    half = out_size / 2
-    cx = m00 * half + m01 * half + m02
-    cy = m10 * half + m11 * half + m12
-    s = torch.exp2(lvl.float())
-    shift = (s - 1.0) / 2.0
-    # |4 * x0p - ideal origin| <= 2 raw pixels, inside HALO_P
-    x0p = torch.clamp(torch.round(((cx - shift) / s - ROI / 2) / 4.0).long(), min=0)
-    x0p = torch.minimum(x0p, lws[lvl] - proi)
-    y0p = torch.clamp(torch.round(((cy - shift) / s - ROI / 2) / 4.0).long(), min=0)
-    y0p = torch.minimum(y0p, lhs[lvl] - proi)
-    ar = torch.arange(proi, device=dev)
-    rows = (y0p[:, None] + ar)[:, :, None]
-    cols = (x_offs[lvl] + x0p)[:, None, None] + ar[None, None, :]
-    rois = atlas[frame_idx.long()[:, None, None], rows, cols]
-    lin = m_inv[:, :, :2] / s[:, None, None]
-    trans = ((m_inv[:, :, 2] - shift[:, None]) / s[:, None]
-             - 4.0 * torch.stack([x0p, y0p], 1).float())
-    mats = torch.cat([lin, trans[:, :, None]], dim=2)
-    return rois.contiguous(), mats.contiguous()
+    windows, mats = roi_windows_packed(offsets, frame_idx, m_inv, out_size, levels)
+    return gather_windows(atlas, windows, ROI // 4), mats
 
 
 def unpack_roi4(roi_p: torch.Tensor) -> torch.Tensor:
@@ -296,14 +326,16 @@ def warp_faces_two_pass_packed(frames_p4: torch.Tensor, frame_idx: torch.Tensor,
                                dst: torch.Tensor | None = None,
                                levels: int = 4) -> torch.Tensor:
     """``warp_faces_two_pass`` on s2d4-packed frames [B, H/4, W/4, 16C]; kps
-    stay in raw frame coordinates.  Each face's packed ROI (48 x 48 packed
-    pixels) is unpacked to the 192 x 192 raw ROI and warped by K3, the
-    reference's ``_warp_one_from_packed_roi``.
+    stay in raw frame coordinates.  K3 reads each face's packed window
+    (48 x 48 packed pixels, the 192 x 192 raw ROI) straight from the packed
+    atlas: the reference's ``_warp_one_from_packed_roi`` with no unpacked
+    ROI in between.
 
     Returns [M, out_size, out_size, C] float32 crops.
     """
     if dst is None:
         dst = torch.from_numpy(ARCFACE_DST) * (out_size / 112.0)
     m_inv = _invert_affine(umeyama_similarity(kps, dst.to(frames_p4.device)))
-    rois, mats = extract_rois_packed(frames_p4, frame_idx, m_inv, out_size, levels)
-    return warp_rois(unpack_roi4(rois).float().contiguous(), mats, out_size)
+    atlas, offsets = build_atlas_packed(frames_p4, levels)
+    windows, mats = roi_windows_packed(offsets, frame_idx, m_inv, out_size, levels)
+    return warp_windows(atlas, windows, mats, out_size, packed=True)

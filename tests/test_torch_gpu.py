@@ -9,10 +9,12 @@ also runs on a machine without it:
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from facerecognition_infrenceengine_tpu_torch.core.device import resolve_device
 from facerecognition_infrenceengine_tpu_torch.ops import match_kernel, warp2pass, warp_kernel
-from facerecognition_infrenceengine_tpu_torch.ops.align import ARCFACE_DST
+from facerecognition_infrenceengine_tpu_torch.ops.align import (
+    ARCFACE_DST, _invert_affine, umeyama_similarity)
 
 pytestmark = pytest.mark.gpu
 
@@ -82,6 +84,116 @@ def test_warp_kernel_matches_plain_at_attribute_sizes(cuda, out_size):
     assert (got - want).abs().max().item() <= 1e-3
     cpu = warp2pass.warp_boxes_two_pass(frames, fidx, boxes, out_size)
     assert (got.cpu() - cpu).abs().max().item() <= 1e-3
+
+
+# ------------------------------------------------- K3 read from the atlas
+ATTR_BOXES = [[10, 20, 60, 90], [100, 50, 300, 250], [-50, -40, 2400, 1300], [0, 0, 32, 32],
+              [5, 5, 4, 4], [1800, 1000, 1930, 1100], [30, 30, 156, 156], [400, 300, 900, 800]]
+
+
+def _hd_faces(m, out_size, seed=3):
+    """2 frames of 1088x1920 and m faces' dst->frame affines: the boxes of
+    test_warp_kernel_matches_plain_at_attribute_sizes (larger than the frame,
+    degenerate, at the edges), then faces from landmarks at scales 0.5-6 and
+    rotations up to 0.6 rad, some on the frames' edges."""
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 1088, 1920, 3), dtype=np.uint8))
+    fixed = warp2pass.boxes_to_affines(torch.tensor(ATTR_BOXES, dtype=torch.float32), out_size)
+    dst = torch.from_numpy(ARCFACE_DST) * (out_size / 112.0)
+    base = ARCFACE_DST - ARCFACE_DST.mean(0)
+    kps = []
+    for _ in range(max(m - len(ATTR_BOXES), 0)):
+        scale, theta = rng.uniform(0.5, 6.0), rng.uniform(-0.6, 0.6)
+        rot = np.array([[np.cos(theta), -np.sin(theta)],
+                        [np.sin(theta), np.cos(theta)]]) * scale
+        kps.append(base @ rot.T + rng.uniform((-20, -20), (1940, 1100)))
+    m_inv = fixed
+    if kps:
+        kps = torch.from_numpy(np.stack(kps).astype(np.float32))
+        m_inv = torch.cat([fixed, _invert_affine(umeyama_similarity(kps, dst))])
+    return frames, torch.arange(m) % 2, m_inv[:m]
+
+
+@pytest.mark.parametrize("out_size", [96, 112, 192])
+@pytest.mark.parametrize("layout", ["raw-uint8", "packed-uint8", "raw-float32", "packed-float32"])
+def test_warp_windows_bit_equal_to_warp_rois(cuda, layout, out_size):
+    """K3 read straight from the atlas gives the kernel's crops on the
+    extracted ROIs bit for bit (the same taps on the same values: uint8 ->
+    float32 is exact), in both uint8 reads, and its plain version's within
+    1e-3; one launch a call; M = 1, 255, 256, 257."""
+    packed = layout.startswith("packed")
+    for m in (1, 255, 256, 257):
+        frames, fidx, m_inv = _hd_faces(m, out_size)
+        frames = frames.to(cuda)
+        if layout.endswith("float32"):
+            frames = frames.float()
+        if packed:
+            atlas, offsets = warp2pass.build_atlas_packed(warp2pass.space_to_depth4(frames))
+            windows, mats = warp2pass.roi_windows_packed(offsets, fidx.to(cuda), m_inv.to(cuda),
+                                                         out_size)
+            rois = warp2pass.unpack_roi4(warp_kernel.gather_windows(atlas, windows, 48))
+        else:
+            atlas, offsets = warp2pass.build_atlas(frames)
+            windows, mats = warp2pass.roi_windows(offsets, fidx.to(cuda), m_inv.to(cuda),
+                                                  out_size)
+            rois = warp_kernel.gather_windows(atlas, windows, 192)
+        want = warp_kernel.warp_rois(rois.float().contiguous(), mats, out_size)
+        plain = warp_kernel.warp_windows_plain(atlas, windows, mats, out_size, packed)
+        for variant in ("direct", "staged"):
+            before = warp_kernel.warp_rois.launches_by_size[out_size]
+            got = warp_kernel.warp_windows(atlas, windows, mats, out_size, packed=packed,
+                                           variant=variant)
+            torch.cuda.synchronize()
+            assert warp_kernel.warp_rois.launches_by_size[out_size] == before + 1
+            assert got.shape == (m, out_size, out_size, 3)
+            assert torch.equal(got, want), (m, variant)
+            assert (got - plain).abs().max().item() <= 1e-3, (m, variant)
+
+
+class _Outputs(TorchDispatchMode):
+    """(op, shape) of every tensor the aten ops under it return."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(t, torch.Tensor):
+                self.seen.append((str(func), tuple(t.shape)))
+        return out
+
+
+@pytest.mark.parametrize("out_size", [96, 112, 192])
+def test_warp_step_allocates_no_roi_tensor(cuda, out_size):
+    """warp_faces_two_pass, warp_boxes_two_pass and warp_faces_two_pass_packed
+    launch K3 once on the atlas: no op on the card path returns a
+    [M, 192, 192, *] or [M, 48, 48, *] ROI stack (the crops themselves are
+    the one empty [M, out, out, 3] the wrapper allocates)."""
+    m = 64
+    frames, fidx, m_inv = _hd_faces(m, out_size)
+    frames, fidx = frames.to(cuda), fidx.to(cuda)
+    rng = np.random.default_rng(4)
+    kps = torch.from_numpy((ARCFACE_DST * rng.uniform(1, 4, (m, 1, 1))
+                            + rng.uniform(0, 1500, (m, 1, 2))).astype(np.float32)).to(cuda)
+    boxes = torch.tensor(ATTR_BOXES * (m // len(ATTR_BOXES)), dtype=torch.float32, device=cuda)
+    dst = torch.from_numpy(ARCFACE_DST) * (out_size / 112.0)
+    p4 = warp2pass.space_to_depth4(frames).contiguous()
+    for name, call in (
+            ("faces", lambda: warp2pass.warp_faces_two_pass(frames, fidx, kps, out_size, dst=dst)),
+            ("boxes", lambda: warp2pass.warp_boxes_two_pass(frames, fidx, boxes, out_size)),
+            ("packed", lambda: warp2pass.warp_faces_two_pass_packed(p4, fidx, kps, out_size,
+                                                                    dst=dst))):
+        before = warp_kernel.warp_rois.launches
+        with _Outputs() as seen:
+            crops = call()
+        torch.cuda.synchronize()
+        assert warp_kernel.warp_rois.launches == before + 1, name
+        assert crops.shape == (m, out_size, out_size, 3)
+        rois = [(op, shape) for op, shape in seen.seen if len(shape) == 4 and shape[0] == m
+                and shape[1:3] in ((192, 192), (48, 48)) and not op.startswith("aten.empty")]
+        assert not rois, (name, rois)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
