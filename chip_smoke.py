@@ -51,7 +51,37 @@ Phases, one flushed line each:
    it is not bounded).  Host times: 8 letterboxes, C++ against plain, and the yuv420
    encode of the rgb path's 8 640x480 frames, C++ (encode_frame) against the
    numpy encoder the port used before the host codec was built.
-6. kernels vs their plain PyTorch versions, on the card, at the paths'
+6. mfn path: FaceAnalysis("mobile_facenet_v1", allowed_modules=
+   ("detection", "recognition")), det_10g + MobileFaceNet (full width) in
+   bf16, serves the rgb path's 3 requests, then match_faces against an f32
+   gallery (capacity 65,536, n_valid 50,000: request 1's faces plus seeded
+   distractors).  Every face of request 1 finds its own id at >= 0.99; K3
+   launches once a request and K1 once a frame; a det_2.5g + MobileFaceNet
+   f32 engine embeds request 1's faces on the card and on the CPU within
+   1 - cos 1e-4.  Wall and device ms a request, beside the r50 rgb path's.
+7. onnx path: the synthetic genderage / landmark heads (seeds 7 and 8)
+   written as buffalo_l-shaped ONNX graphs (models/onnx_export.head_graph:
+   Sub/Div, Conv + BatchNormalization + PRelu stages, a batch-1 Reshape)
+   into a temporary FRE_WEIGHTS_DIR; FaceAnalysis("buffalo_l") with its
+   default modules picks the exact-graph runners (sizes 96 and 192) and
+   serves 2 requests of the rgb frames: K3 once a request at 112, 96 and
+   192; request 1's gender, age and landmarks equal the float32 nn.Module
+   heads' on the same K3 crops (gender wherever the logits differ by more
+   than 1e-4, age within 1, landmarks within 1e-3 px).  The attribute
+   call's device ms, exact graphs (f32) against the synthetic heads (bf16).
+8. gallery: 50,000 employees (request 1's rgb-path embeddings plus seeded
+   distractors) written into a memory:// Datastore in bulk, as the
+   enrollment worker writes them (one GridFS put a person, one
+   insert_many); GalleryManager(ds, cfg) f32 (K1) and int8 (K2) load it;
+   every face of request 1 finds its own id at >= 0.99 through
+   match(company_id=...), and K2's ids and scores equal the plain int8
+   version's.  A second store of 2,000 gets 10 appended, 10 archived
+   (update_many) and 5 hard-deleted, then force_sync: no snapshot rebuilt,
+   exact stats, no removed id returned, every appended person matches
+   itself; start_sync / stop_sync pick one more up on the sync thread.
+   Host times: the write, the initial loads, the snapshot builds, the first
+   matches and force_sync.
+9. kernels vs their plain PyTorch versions, on the card, at the paths'
    shapes:
    - K3 at M = 256 read straight from request 1's uint8 atlas (the path's
      call) on request 1's faces (with the path's pyramid-level histogram
@@ -84,7 +114,7 @@ Phases, one flushed line each:
    - the yuv mix on the card against the CPU on every (Y, U, V) triple;
    - K3 at 96 and 192 on the hd path's request-1 boxes and on 256 boxes of
      40-400 px inside its frames, from one atlas of the native batch.
-7. times: `ms` is the wrapper call as the path makes it, CUDA events over
+10. times: `ms` is the wrapper call as the path makes it, CUDA events over
    back-to-back calls after warm-up (host dispatch included where the host
    is slower than the card); `kernel_device_ms` is the kernels' own device
    time a call, from torch.profiler's device events over the same calls.
@@ -100,7 +130,7 @@ Phases, one flushed line each:
    them), timed in turns, beside atlas_ms.  K1's wrapper is also timed at
    B = 1 with its scratch cache emptied before every call (`ms_uncached`):
    the per-call allocations and library lookups the cache removes.
-8. the card line, then {"ok": true, "device": ...} as the last line.
+11. the card line, then {"ok": true, "device": ...} as the last line.
 
     python3 chip_smoke.py --profile
 
@@ -118,8 +148,11 @@ from __future__ import annotations
 
 import faulthandler
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -129,6 +162,7 @@ REQUESTS = 3
 FRAMES = 8
 CAPACITY_ROWS = 50_000          # n_valid of the galleries
 CAPACITY = 65_536               # their padded capacity
+DELTA_ROWS = 2_000              # the delta-sync store: a site's gallery
 TIE_ROW, FAR_ROW = 30_000, 65_000  # planted rows: a tie across chunks, one past n_valid
 CANVAS = 640                    # det canvas side
 FRAME_H, FRAME_W = 480, 640     # camera frames (letterbox scale 1.0 on the canvas)
@@ -413,7 +447,10 @@ def main() -> int:
     faulthandler.dump_traceback_later(600, exit=True)
     from facerecognition_infrenceengine_tpu_torch.core.config import (
         Config, EngineConfig, ThresholdConfig)
-    from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+    from facerecognition_infrenceengine_tpu_torch.core.clock import get_current_utc
+    from facerecognition_infrenceengine_tpu_torch.core.serialization import serialize_embedding
+    from facerecognition_infrenceengine_tpu_torch.engine.gallery import (
+        GalleryManager, _CompanySnapshot)
     from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine
     from facerecognition_infrenceengine_tpu_torch.engine.recognizer import (
         FaceRecognitionProcessor)
@@ -421,6 +458,7 @@ def main() -> int:
     from facerecognition_infrenceengine_tpu_torch.engine.pipeline import _YUV_BLACK, bucket
     from facerecognition_infrenceengine_tpu_torch.kernels import build
     from facerecognition_infrenceengine_tpu_torch.models import genderage, landmark106, scrfd
+    from facerecognition_infrenceengine_tpu_torch.models.onnx_export import head_graph
     from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
     from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis, letterbox
     from facerecognition_infrenceengine_tpu_torch.native import plain
@@ -428,6 +466,7 @@ def main() -> int:
         match_kernel, stem_kernel, warp2pass, warp_kernel, yuv)
     from facerecognition_infrenceengine_tpu_torch.ops.align import (
         ARCFACE_DST, _invert_affine, umeyama_similarity)
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore, ObjectId
 
     # ---------------------------------------------------------------- device
     card = card_line()
@@ -465,7 +504,7 @@ def main() -> int:
         f"{cfg.engine.det_size} built in {time.perf_counter() - t0:.2f} s")
     rng = np.random.default_rng(0)
     requests = [camera_frames(rng, FRAMES) for _ in range(REQUESTS)]
-    galleries = GalleryManager(cfg, device="cuda")
+    galleries = GalleryManager(Datastore(cfg), cfg, initial_load=False, device="cuda")
     proc = FaceRecognitionProcessor(galleries, face_app=app, cfg=cfg)
 
     warp_kernel.warp_rois.launches = 0
@@ -548,7 +587,7 @@ def main() -> int:
         f"{ycfg.engine.det_size}, stream_transport=yuv420 packed_stem_impl=pallas "
         f"gallery_dtype=int8, built in {time.perf_counter() - t0:.2f} s")
     check(all(yapp._yuv_eligible(yengine, frames) for frames in requests), "yuv path not taken")
-    ygal = GalleryManager(ycfg, device="cuda")
+    ygal = GalleryManager(Datastore(ycfg), ycfg, initial_load=False, device="cuda")
     yproc = FaceRecognitionProcessor(ygal, face_app=yapp, cfg=ycfg)
 
     stem_kernel.fused_stem.launches = 0
@@ -733,7 +772,7 @@ def main() -> int:
     for i, f in enumerate(rgb1):
         hd_batch[i, :f.shape[0], :f.shape[1]] = f
 
-    hgal = GalleryManager(hcfg, device="cuda")
+    hgal = GalleryManager(Datastore(hcfg), hcfg, initial_load=False, device="cuda")
     hproc = FaceRecognitionProcessor(hgal, face_app=happ, cfg=hcfg)
     warp_kernel.warp_rois.launches = 0
     warp_kernel.warp_rois.launches_by_size.clear()
@@ -880,6 +919,305 @@ def main() -> int:
                                         for f, fl in zip(hd_requests[1],
                                                          happ.get_batch(hd_requests[1]))],
                         "hd request 2")
+
+    # -------------------------------------------------------------- mfn path
+    mcfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
+                  engine=EngineConfig(det_size=(CANVAS, CANVAS)))
+    t0 = time.perf_counter()
+    mapp = FaceAnalysis("mobile_facenet_v1", cfg=mcfg.engine, device="cuda",
+                        allowed_modules=("detection", "recognition"))
+    mapp.prepare(ctx_id=0, det_thresh=DET_THRESH)
+    mengine = mapp._ensure_engine()
+    check(mengine.rec_arch == "mobilefacenet", f"mobile_facenet_v1 built {mengine.rec_arch}")
+    say(f"[mfn] FaceAnalysis(mobile_facenet_v1) det_10g + MobileFaceNet {mcfg.engine.dtype} "
+        f"{mcfg.engine.det_size}, built in {time.perf_counter() - t0:.2f} s")
+    mgal = GalleryManager(Datastore(mcfg), mcfg, initial_load=False, device="cuda")
+    mproc = FaceRecognitionProcessor(mgal, face_app=mapp, cfg=mcfg)
+    warp_kernel.warp_rois.launches = 0
+    warp_kernel.warp_rois.launches_by_size.clear()
+    match_kernel.gallery_top1.launches = 0
+    match_kernel.gallery_top1_int8.launches = 0
+    stem_kernel.fused_stem.launches = 0
+    m_ms, m_faces, m_results = [], [], []
+    m_setup_ms = 0.0
+    for r, frames in enumerate(requests):
+        t0 = time.perf_counter()
+        faces = mapp.get_batch(frames)
+        setup = 0.0
+        if r == 0:  # enrol request 1's faces plus the seeded distractors
+            t1 = time.perf_counter()
+            mown = [f"r0-f{i}-s{j}" for i, fl in enumerate(faces) for j in range(len(fl))]
+            emb = [f.normed_embedding for fl in faces for f in fl]
+            n_dis = CAPACITY_ROWS - len(mown)
+            dis = np.random.default_rng(1).normal(size=(n_dis, 512)).astype(np.float32)
+            mids = mown + [f"distractor-{k}" for k in range(n_dis)]
+            mmeta = {pid: {"type": "employee", "name": pid} for pid in mids}
+            msnap = mgal.set_snapshot(mids, mmeta, np.concatenate([np.stack(emb), dis]),
+                                      company_id="site-1")
+            torch.cuda.synchronize()
+            setup = time.perf_counter() - t1
+            m_setup_ms = setup * 1e3
+        out = [mproc.match_faces(frame, fl, "site-1", draw=False)[1]
+               for frame, fl in zip(frames, faces)]
+        torch.cuda.synchronize()
+        m_ms.append((time.perf_counter() - t0 - setup) * 1e3)
+        m_faces.append(sum(len(fl) for fl in faces))
+        m_results.append((faces, out))
+    m_launches = {"warp_rois": dict(warp_kernel.warp_rois.launches_by_size),
+                  "gallery_top1": match_kernel.gallery_top1.launches,
+                  "gallery_top1_int8": match_kernel.gallery_top1_int8.launches,
+                  "fused_stem": stem_kernel.fused_stem.launches}
+    say(f"[mfn] launches on the path {m_launches}")
+    check(all(n > 0 for n in m_faces), "an mfn request found no valid slot")
+    check(msnap.device_matrix.shape[0] == CAPACITY and msnap.size == CAPACITY_ROWS,
+          "mfn gallery shape")
+    check(m_launches["warp_rois"] == {112: REQUESTS}
+          and m_launches["gallery_top1"] == sum(1 for fs, _ in m_results for fl in fs if fl)
+          == REQUESTS * FRAMES and m_launches["gallery_top1_int8"] == 0
+          and m_launches["fused_stem"] == 0,
+          f"the mfn path must launch K3 once a request and K1 once a frame: {m_launches}")
+    k = 0
+    for fl, rows in zip(*m_results[0]):
+        for face, row in zip(fl, rows):
+            check(abs(float(np.linalg.norm(face.normed_embedding)) - 1.0) < 1e-3, "mfn norm")
+            check(row["recognized"] and row["person_id"] == mown[k] and row["similarity"] >= 0.99,
+                  f"mfn request 1 face {mown[k]} matched {row['person_id']} at "
+                  f"{row['similarity']}")
+            k += 1
+
+    def mfn_request():
+        return [mproc.match_faces(f, fl, "site-1", draw=False)
+                for f, fl in zip(requests[1], mapp.get_batch(requests[1]))]
+
+    def rgb_request():
+        return [proc.match_faces(f, fl, "site-1", draw=False)
+                for f, fl in zip(requests[1], app.get_batch(requests[1]))]
+
+    # a small det_2.5g + MobileFaceNet f32 engine on the card against the CPU, on
+    # request 1's faces (K3 and plain crops of the native frames)
+    small_m = EngineConfig(det_size=(128, 128), max_faces=8, pre_nms_topk=64, dtype="float32")
+    m_idx = np.asarray([b for b, fl in enumerate(m_results[0][0]) for _ in fl], np.int32)
+    m_kps = np.stack([f.kps for fl in m_results[0][0] for f in fl]).astype(np.float32)
+    m_rgb = np.stack([np.ascontiguousarray(f[..., ::-1]) for f in requests[0]])
+    e_card = FaceEngine(small_m, det_arch="det_2.5g", rec_arch="mobilefacenet",
+                        device="cuda").embed_faces(m_rgb, m_idx, m_kps)
+    e_cpu = FaceEngine(small_m, det_arch="det_2.5g", rec_arch="mobilefacenet",
+                       device="cpu").embed_faces(m_rgb, m_idx, m_kps)
+    m_cos = float((e_card * e_cpu).sum(1).min())
+    check(1.0 - m_cos <= 1e-4, f"MobileFaceNet f32 card vs CPU: 1-cos {1.0 - m_cos}")
+    say(f"[mfn] {card} | request wall ms {[round(t, 1) for t in m_ms]} (r50 rgb path: "
+        f"{[round(t, 1) for t in request_ms]}); request 1: {k}/{k} faces matched their own "
+        f"id (min score {min(r['similarity'] for rows in m_results[0][1] for r in rows):.6f});"
+        f" det_2.5g+MobileFaceNet f32 card vs CPU on {len(m_idx)} faces: 1-cos "
+        f"{1.0 - m_cos:.2e}")
+
+    # ------------------------------------------------------------- onnx path
+    # the synthetic heads (seeds 7 and 8) written as buffalo_l-shaped graphs in
+    # a temporary weights dir: FaceAnalysis("buffalo_l") then runs the exact
+    # graphs through models/onnx_exec.py, on K3 crops at the graphs' sizes
+    ga_f32 = load_or_init("genderage", genderage.GenderAge(), 7)
+    lm_f32 = load_or_init("landmark_2d_106", landmark106.Landmark106(), 8)
+    onnx_dir = tempfile.mkdtemp(prefix="fre-onnx-")
+    weights_env = os.environ.get("FRE_WEIGHTS_DIR")
+    try:
+        with open(os.path.join(onnx_dir, "attr_genderage.onnx"), "wb") as f:
+            f.write(head_graph(ga_f32, ATTR_SIZES[0]))
+        with open(os.path.join(onnx_dir, "attr_2d106det.onnx"), "wb") as f:
+            f.write(head_graph(lm_f32, ATTR_SIZES[1], batch1_reshape=True))
+        os.environ["FRE_WEIGHTS_DIR"] = onnx_dir
+        t0 = time.perf_counter()
+        oapp = FaceAnalysis("buffalo_l", cfg=EngineConfig(det_size=(CANVAS, CANVAS)),
+                            device="cuda")
+        oapp.prepare(ctx_id=0, det_thresh=DET_THRESH)
+        oengine = oapp._ensure_engine()
+        oengine._ensure_attr_models()
+    finally:
+        if weights_env is None:
+            os.environ.pop("FRE_WEIGHTS_DIR", None)
+        else:
+            os.environ["FRE_WEIGHTS_DIR"] = weights_env
+        shutil.rmtree(onnx_dir, ignore_errors=True)
+    check(oengine._attr_runners is not None and oengine._attr_sizes == ATTR_SIZES,
+          f"the exact graphs were not picked up: sizes {oengine._attr_sizes}")
+    check(oapp.allowed_modules == ALL_MODULES, f"default modules {oapp.allowed_modules}")
+    say(f"[onnx] FaceAnalysis(buffalo_l) with attr_genderage.onnx + attr_2d106det.onnx "
+        f"({sum(r.param_census() for r in oengine._attr_runners)} weights), runners at sizes "
+        f"{oengine._attr_sizes}, built in {time.perf_counter() - t0:.2f} s")
+    warp_kernel.warp_rois.launches = 0
+    warp_kernel.warp_rois.launches_by_size.clear()
+    match_kernel.gallery_top1.launches = 0
+    o_ms, o_results = [], []
+    for frames in requests[:2]:
+        t0 = time.perf_counter()
+        o_results.append(oapp.get_batch(frames))
+        torch.cuda.synchronize()
+        o_ms.append((time.perf_counter() - t0) * 1e3)
+    o_launches = {"warp_rois": dict(warp_kernel.warp_rois.launches_by_size),
+                  "gallery_top1": match_kernel.gallery_top1.launches}
+    say(f"[onnx] launches on the path {o_launches}")
+    check(o_launches["warp_rois"] == {112: 2, ATTR_SIZES[0]: 2, ATTR_SIZES[1]: 2},
+          f"the onnx path must launch K3 once a request at 112, 96 and 192: {o_launches}")
+    # request 1 against the float32 nn.Module heads on the same K3 crops of the
+    # same canvases
+    o_faces = [f for fl in o_results[0] for f in fl]
+    canvases = torch.from_numpy(np.stack([letterbox(np.ascontiguousarray(f[..., ::-1]),
+                                                    (CANVAS, CANVAS))[0]
+                                          for f in requests[0]])).to(dev)
+    o_idx = torch.tensor([b for b, fl in enumerate(o_results[0]) for _ in fl], device=dev)
+    o_boxes = torch.from_numpy(np.stack([f.bbox for f in o_faces]).astype(np.float32)).to(dev)
+    ga_dev, lm_dev = ga_f32.to(dev), lm_f32.to(dev)
+    with torch.inference_mode():
+        ga_out = ga_dev(genderage.preprocess(warp2pass.warp_boxes_two_pass(
+            canvases, o_idx, o_boxes, ATTR_SIZES[0]))).cpu().numpy()
+        lm_norm = lm_dev(genderage.preprocess(warp2pass.warp_boxes_two_pass(
+            canvases, o_idx, o_boxes, ATTR_SIZES[1]))).float()
+        m_inv = warp2pass.boxes_to_affines(o_boxes, ATTR_SIZES[1])
+        lm_want = (torch.einsum("mij,mkj->mki", m_inv[:, :, :2],
+                                (lm_norm + 1.0) * ATTR_SIZES[1] / 2)
+                   + m_inv[:, None, :, 2]).cpu().numpy()
+    g_got = np.asarray([f.gender for f in o_faces])
+    a_got = np.asarray([f.age for f in o_faces], np.float64)
+    l_got = np.stack([f.landmark_2d_106 for f in o_faces])
+    decided = np.abs(ga_out[:, 0] - ga_out[:, 1]) > 1e-4
+    check(np.array_equal(g_got[decided], np.argmax(ga_out[:, :2], 1)[decided]),
+          "exact-graph gender differs from the float32 head's")
+    age_err = float(np.abs(a_got - np.round(ga_out[:, 2] * 100.0)).max())
+    lm_px_err = float(np.abs(l_got - lm_want).max())
+    check(age_err <= 1.0 and lm_px_err <= 1e-3,
+          f"exact-graph age err {age_err}, landmarks err {lm_px_err} px")
+    o_idx_np, o_boxes_np = o_idx.cpu().numpy(), o_boxes.cpu().numpy()
+    say(f"[onnx] {card} | request wall ms {[round(t, 1) for t in o_ms]}; request 1's "
+        f"{len(o_faces)} faces against the float32 heads on the same crops: gender equal on "
+        f"{int(decided.sum())} decided, age err {age_err:.0f}, landmarks err "
+        f"{lm_px_err:.2e} px")
+
+    # ---------------------------------------------------------- gallery path
+    # the store-backed gallery: 50,000 employees written into a memory://
+    # Datastore in bulk (one GridFS put a person, one insert_many), loaded by
+    # an f32 (K1) and an int8 (K2) GalleryManager; then the delta sync on a
+    # second store of 2,000 (the audit is quadratic in the gallery: a 50,000
+    # store would take minutes a sync)
+    def write_people(ds, company, vecs, prefix):
+        """Employees as registration + the enrollment worker leave them, in
+        bulk -> their ids (hex)."""
+        docs = []
+        for n, v in enumerate(vecs):
+            pid = ObjectId()
+            fid = ds.employee_embeddings.put(serialize_embedding(v),
+                                             filename=f"{company}_{pid}_buffalo_l.pkl")
+            now = get_current_utc()
+            docs.append({"_id": pid, "companyId": company, "employeeId": f"{prefix}{n:05d}",
+                         "employeeName": f"{prefix}{n:05d}", "status": "active",
+                         "blacklisted": False, "lastUpdated": now,
+                         "employeeEmbeddings": {"buffalo_l": {
+                             "embeddingId": fid, "status": "done", "createdAt": now,
+                             "finishedAt": now, "corrupt": False}}})
+        ds.employee_info.insert_many(docs)
+        return [str(d["_id"]) for d in docs]
+
+    gcfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
+                  engine=EngineConfig(det_size=(CANVAS, CANVAS)))
+    g8cfg = Config(thresholds=gcfg.thresholds,
+                   engine=EngineConfig(det_size=(CANVAS, CANVAS), gallery_dtype="int8"))
+    own_vecs = np.stack([f.normed_embedding for fl in results[0][0] for f in fl])
+    g_dis = np.random.default_rng(9).normal(size=(CAPACITY_ROWS - len(own_vecs), 512))
+    gds, gco = Datastore(gcfg), ObjectId()
+    t0 = time.perf_counter()
+    g_ids = write_people(gds, gco, np.concatenate([own_vecs, g_dis]).astype(np.float32), "E")
+    g_write_s = time.perf_counter() - t0
+    match_kernel.gallery_top1.launches = 0
+    match_kernel.gallery_top1_int8.launches = 0
+    g_times = {}
+    g_out = {}
+    for dtype_name, c_ in (("float32", gcfg), ("int8", g8cfg)):
+        t0 = time.perf_counter()
+        gm = GalleryManager(gds, c_, device="cuda")
+        t1 = time.perf_counter()
+        gsnap = gm.snapshot(str(gco))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        scores, ids, _ = gm.match(own_vecs, company_id=str(gco))
+        t3 = time.perf_counter()
+        g_times[dtype_name] = {"initial_load_s": t1 - t0, "snapshot_build_s": t2 - t1,
+                               "first_match_ms": (t3 - t2) * 1e3}
+        g_out[dtype_name] = (gm, gsnap, scores, ids)
+        check(gm.get_stats()["total_embeddings"] == CAPACITY_ROWS
+              and gsnap.size == CAPACITY_ROWS and gsnap.device_matrix.shape[0] == CAPACITY,
+              f"{dtype_name} gallery: {gm.get_stats()}, snapshot {gsnap.size}")
+    g_launches = {"gallery_top1": match_kernel.gallery_top1.launches,
+                  "gallery_top1_int8": match_kernel.gallery_top1_int8.launches}
+    check(g_launches == {"gallery_top1": 1, "gallery_top1_int8": 1},
+          f"the gallery phase must launch K1 and K2 once each: {g_launches}")
+    _, _, s32, ids32 = g_out["float32"]
+    n_own = len(own_vecs)
+    check([r[0] for r in ids32] == g_ids[:n_own] and float(s32[:, 0].min()) >= 0.99,
+          f"f32 gallery: {sum(r[0] != p for r, p in zip(ids32, g_ids))} faces miss their own "
+          f"id, min score {float(s32[:, 0].min())}")
+    _, snap8, s8, ids8 = g_out["int8"]
+    q8 = np.zeros((bucket(n_own), 512), np.float32)
+    q8[:n_own] = own_vecs
+    pv, pi = match_kernel.gallery_top1_int8_plain(torch.from_numpy(q8).to(dev),
+                                                  snap8.device_matrix, snap8.int8_scale,
+                                                  snap8.size)
+    pv, pi = pv.cpu().numpy()[:n_own], pi.cpu().numpy()[:n_own]
+    check(np.array_equal(s8[:, 0], pv) and [r[0] for r in ids8] == [snap8.ids[i] for i in pi],
+          "K2 behind the store-backed gallery differs from the plain int8 version")
+    say(f"[gallery] {card} | {CAPACITY_ROWS} employees written in {g_write_s:.2f} s "
+        f"(GridFS puts + insert_many); " + "; ".join(
+            f"{k}: initial load {v['initial_load_s']:.2f} s, snapshot build "
+            f"{v['snapshot_build_s']:.2f} s, first match ({n_own} faces) "
+            f"{v['first_match_ms']:.2f} ms" for k, v in g_times.items())
+        + f"; request 1's {n_own} faces found their own ids (min f32 score "
+        f"{float(s32[:, 0].min()):.6f}), K2's ids and scores equal to the plain int8 version")
+    del g_out, gds
+
+    # the delta sync on a site-sized store
+    dds, dco = Datastore(gcfg), ObjectId()
+    d_vecs = np.random.default_rng(10).normal(size=(DELTA_ROWS + 11, 512)).astype(np.float32)
+    d_vecs /= np.linalg.norm(d_vecs, axis=1, keepdims=True)
+    d_ids = write_people(dds, dco, d_vecs[:DELTA_ROWS], "D")
+    dm = GalleryManager(dds, gcfg, device="cuda")
+    dm.snapshot(str(dco)), dm.snapshot(None)
+    builds = _CompanySnapshot.full_builds
+    added = write_people(dds, dco, d_vecs[DELTA_ROWS:DELTA_ROWS + 10], "A")
+    archived, deleted = d_ids[:10], d_ids[10:15]
+    dds.employee_info.update_many({"_id": {"$in": [ObjectId(p) for p in archived]}},
+                                  {"$set": {"status": "archived",
+                                            "deletedAt": get_current_utc()}})
+    dds.employee_info.delete_many({"_id": {"$in": [ObjectId(p) for p in deleted]}})
+    t0 = time.perf_counter()
+    dm.force_sync()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    stats = dm.get_stats()
+    want_n = DELTA_ROWS + 10 - 10 - 5
+    check(_CompanySnapshot.full_builds == builds, "the delta sync rebuilt a snapshot")
+    check(stats["total_embeddings"] == stats["employees"] == want_n and stats["visitors"] == 0,
+          f"stats after the delta: {stats}, want {want_n}")
+    removed = set(archived) | set(deleted)
+    probe = np.concatenate([d_vecs[:15], d_vecs[DELTA_ROWS:DELTA_ROWS + 10]])
+    for key in (str(dco), None):
+        scores, ids, _ = dm.match(probe, company_id=key)
+        check(not removed & {r[0] for r in ids}, "a removed id was returned")
+        check([r[0] for r in ids[15:]] == added and float(scores[15:, 0].min()) >= 0.99,
+              "an appended person does not match itself")
+        check(dm.snapshot(key).size == want_n, f"snapshot {key}: {dm.snapshot(key).size}")
+    late = write_people(dds, dco, d_vecs[DELTA_ROWS + 10:], "L")
+    dm.sync_interval = 0.05
+    dm.start_sync()
+    deadline = time.time() + 30
+    while dm.get_stats()["total_embeddings"] < want_n + 1 and time.time() < deadline:
+        time.sleep(0.02)
+    dm.stop_sync()
+    _, ids, _ = dm.match(d_vecs[DELTA_ROWS + 10:], company_id=str(dco))
+    check(dm.get_stats()["total_embeddings"] == want_n + 1 and ids[0][0] == late[0]
+          and not dm._thread.is_alive(), "start_sync/stop_sync: the sync thread's tick")
+    say(f"[gallery] {card} | delta sync on {DELTA_ROWS}: append 10, archive 10 "
+        f"(update_many), hard-delete 5 -> force_sync {sync_ms:.1f} ms, no rebuild, "
+        f"{want_n} left; no removed id returned, the 10 appended match themselves; the sync "
+        f"thread picked up one more and stopped")
+    g_launches = {"gallery_top1": match_kernel.gallery_top1.launches,
+                  "gallery_top1_int8": match_kernel.gallery_top1_int8.launches}
+    say(f"[gallery] launches in the phase {g_launches}")
 
     # ------------------------------------------------- kernels vs plain, card
     roi = warp2pass.ROI
@@ -1403,11 +1741,12 @@ def main() -> int:
                 "out_size": size, **t, **extra}
 
     kernels = [
-        k3_entry("warp_rois", 112, launches["warp_rois"] + h_launches["warp_rois"].get(112, 0),
+        k3_entry("warp_rois", 112, launches["warp_rois"] + h_launches["warp_rois"].get(112, 0)
+                 + m_launches["warp_rois"].get(112, 0) + o_launches["warp_rois"].get(112, 0),
                  max(warp_err, path_err), k3[112]),
     ] + [
-        k3_entry(f"warp_rois_out{size}", size, h_launches["warp_rois"].get(size, 0),
-                 attr_err[size], k3[size])
+        k3_entry(f"warp_rois_out{size}", size, h_launches["warp_rois"].get(size, 0)
+                 + o_launches["warp_rois"].get(size, 0), attr_err[size], k3[size])
         for size in ATTR_SIZES
     ] + [
         k3_entry("warp_windows_packed", 112, y_launches["warp_rois"], packed_err, k3["packed"],
@@ -1415,7 +1754,7 @@ def main() -> int:
         {"name": "gallery_top1", "route": "cuda", "source": MATCH_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:79",
          "launches": launches["gallery_top1"] + y_launches["gallery_top1"]
-         + h_launches["gallery_top1"],
+         + h_launches["gallery_top1"] + m_launches["gallery_top1"] + g_launches["gallery_top1"],
          "max_abs_err": top1_err["float32"],
          "ms": times[("float32", path_b)], "kernel_device_ms": dev_times[("float32", path_b)],
          "plain_ms": top1_plain_ms, "bound_ms": top1_bound,
@@ -1423,7 +1762,8 @@ def main() -> int:
          "library_ms_bf16": lib_times[("bfloat16", path_b)]},
         {"name": "gallery_top1_int8", "route": "cuda", "source": MATCH_INT8_SRC,
          "replaces": "facerecognition_infrenceengine_tpu/ops/match_pallas.py:235",
-         "launches": y_launches["gallery_top1_int8"], "max_abs_err": 0.0,
+         "launches": y_launches["gallery_top1_int8"] + g_launches["gallery_top1_int8"],
+         "max_abs_err": 0.0,
          "ms": int8_times[path_b], "kernel_device_ms": int8_dev[path_b],
          "kernel_device_ms_cold": int8_cold[path_b], "plain_ms": int8_plain_ms,
          "bound_ms": int8_bound(path_b)[0], "bound_by": int8_bound(path_b)[1],
@@ -1473,6 +1813,16 @@ def main() -> int:
         f"{stem_times['float32']:.4f} ms (plain "
         f"{stem_plain_ms:.3f}, cuDNN stem {stem_lib_ms:.4f}, bound {stem_bnd * 1e3:.2f} us by "
         f"{stem_by})")
+    # the new paths' device time, traced last, after every kernel's own times:
+    # a request of the mfn path beside one of the r50 rgb path, and the
+    # attributes call with the exact graphs beside the synthetic heads
+    m_dev_ms, rgb_dev_ms = device_ms(torch, mfn_request, 3), device_ms(torch, rgb_request, 3)
+    o_dev_ms = device_ms(torch, lambda: oengine.attributes(canvases, o_idx_np, o_boxes_np), 3)
+    s_dev_ms = device_ms(torch, lambda: hengine.attributes(canvases, o_idx_np, o_boxes_np), 3)
+    say(f"[mfn] {card} | device {m_dev_ms:.3f} ms a request (the r50 rgb path: "
+        f"{rgb_dev_ms:.3f} ms)")
+    say(f"[onnx] {card} | attributes on {len(o_faces)} faces, device {o_dev_ms:.3f} ms a call "
+        f"(exact graphs, float32) against {s_dev_ms:.3f} ms (the synthetic heads, bf16)")
     say(json.dumps({"variants": variants}))
     say(json.dumps({"path": {"card": card, "requests": REQUESTS, "frames_per_request": FRAMES,
                              "request_ms": request_ms, "faces_per_request": faces_per_request,
@@ -1491,6 +1841,23 @@ def main() -> int:
                                 "letterbox8_plain_ms": lb_plain_ms, "yuv_encode8_ms": enc_ms,
                                 "yuv_encode8_numpy_ms": enc_plain_ms,
                                 "host_codec_jpeg": native_jpeg}}))
+    say(json.dumps({"mfn_path": {"card": card, "requests": REQUESTS, "frames_per_request": FRAMES,
+                                 "request_ms": m_ms, "device_ms_a_request": m_dev_ms,
+                                 "rgb_r50_device_ms_a_request": rgb_dev_ms,
+                                 "faces_per_request": m_faces, "gallery_setup_ms": m_setup_ms,
+                                 "launches": m_launches, "card_vs_cpu_1_minus_cos": 1.0 - m_cos}}))
+    say(json.dumps({"onnx_path": {"card": card, "requests": 2, "frames_per_request": FRAMES,
+                                  "request_ms": o_ms, "launches": o_launches,
+                                  "attributes_device_ms_exact_f32": o_dev_ms,
+                                  "attributes_device_ms_synthetic_bf16": s_dev_ms,
+                                  "faces": len(o_faces), "age_err": age_err,
+                                  "landmark_err_px": lm_px_err}}))
+    say(json.dumps({"gallery_path": {"card": card, "persons": CAPACITY_ROWS,
+                                     "write_s": g_write_s, **{f"{k}_{n}": v for k, t in
+                                                              g_times.items()
+                                                              for n, v in t.items()},
+                                     "delta_store_persons": DELTA_ROWS,
+                                     "force_sync_ms": sync_ms, "launches": g_launches}}))
     for key, t in k3.items():
         say(f"[times] {card} | K3 {'packed 112' if key == 'packed' else key} on the atlas: "
             f"{t['ms']:.4f} ms, device {t['kernel_device_ms']:.4f} (the direct read; staged "

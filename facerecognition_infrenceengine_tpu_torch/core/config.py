@@ -1,27 +1,87 @@
-"""The configuration subset the serving paths read.
+"""Typed configuration tree.
 
-A copy of the fields of the reference's ``EngineConfig`` and
-``ThresholdConfig`` (``facerecognition_infrenceengine_tpu/core/config.py``)
-that detect -> align -> embed -> match uses, with the same defaults: the
-raw-RGB path and the packed / yuv420 streaming path.
+The port's copy of ``facerecognition_infrenceengine_tpu/core/config.py``:
+one dataclass tree (datastore, REST, thresholds, engine, gallery sync,
+enrollment worker, campus), overridable from the environment, with the
+reference's defaults.  ``EngineConfig`` holds the fields the ported
+serving paths read.
+
+The upstream service hardcodes a production MongoDB credential as the URI
+default (app/config/config.py:8); this tree defaults to the embedded store
+(``memory://``) instead.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from dataclasses import dataclass, field
+from typing import Any
+
+
+def _env(name: str, default: Any, cast=None):
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    if cast is bool:
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    if cast is None:
+        cast = type(default) if default is not None else str
+    try:
+        return cast(raw)
+    except (TypeError, ValueError):
+        return default
+
+
+@dataclass
+class DBConfig:
+    """Datastore endpoints (reference app/config/config.py:5-14)."""
+
+    # "memory://" selects the embedded store; "file:///dir" persists it;
+    # "fre://host:port" shares one embedded store across processes via
+    # store.server; a mongodb:// URI selects pymongo when installed.
+    # Never default to a remote credentialed URI.
+    mongodb_uri: str = field(default_factory=lambda: _env("MONGODB_URI", "memory://"))
+    database_name: str = field(default_factory=lambda: _env("DATABASE_NAME", "bharatlytics"))
+    # Optional on-disk persistence dir for the embedded store ("" = RAM only).
+    persist_dir: str = field(default_factory=lambda: _env("FRE_PERSIST_DIR", ""))
+
+
+@dataclass
+class APIConfig:
+    """REST serving knobs (reference app/config/config.py:15-24, employee.py:51-52)."""
+
+    host: str = field(default_factory=lambda: _env("HOST", "0.0.0.0"))
+    port: int = field(default_factory=lambda: _env("PORT", 5000, int))
+    debug: bool = field(default_factory=lambda: _env("DEBUG", False, bool))
+    url_prefix: str = "/bharatlytics/v1"
+    allowed_extensions: tuple = ("png", "jpg", "jpeg")
+    # Reference queues one embedding job per model in ALLOWED_MODELS
+    # (app/api/employee.py:163-178, app/config/config.py:24).
+    allowed_models: tuple = ("buffalo_l", "mobile_facenet_v1")
+    rate_limit_requests: int = 100  # employee.py:51
+    rate_limit_window_s: float = 60.0  # employee.py:52
 
 
 @dataclass
 class ThresholdConfig:
-    """Match thresholds (reference infrenceServer.py:406-407)."""
+    """All match/cluster thresholds (reference citations inline)."""
 
-    detection: float = 0.3
-    recognition: float = 0.4
+    detection: float = 0.3  # infrenceServer.py:406
+    recognition: float = 0.4  # infrenceServer.py:407
+    counting_recognition: float = 0.45  # peopleCount.py:829
+    definitely_unknown: float = 0.35  # peopleCount.py:830
+    unknown_cluster_join: float = 0.65  # peopleCount.py:232
+    same_person: float = 0.4  # trainingServer.py:70
+    duplicate_face: float = 0.4  # trainingServer.py:71
 
 
 @dataclass
 class EngineConfig:
-    """Pipeline shapes and dtypes."""
+    """Pipeline shapes and dtypes: the reference's serving fields, with its
+    defaults.  The micro-batching and streaming fields (ROADMAP Queue 1
+    item 6) and the int8 / packed-stem scale modes (item 8) come with the
+    modules that read them."""
 
     # Detector input canvas (static shape of every detect program).
     det_size: tuple = (640, 640)
@@ -70,6 +130,67 @@ class EngineConfig:
 
 
 @dataclass
+class SyncConfig:
+    """Gallery sync cadences (infrenceServer.py:55, peopleCount.py:710)."""
+
+    inference_sync_s: float = 30.0
+    counting_sync_s: float = 60.0
+
+
+@dataclass
+class WorkerConfig:
+    """Enrollment worker tunables (reference trainingServer.py:58-71)."""
+
+    poll_interval_s: float = 2.0  # :65
+    batch_size: int = 5  # :64
+    max_workers: int = 3  # :66
+    max_retries: int = 3  # :62
+    heartbeat_s: float = 10.0  # :63
+    stuck_job_timeout_s: float = 1800.0  # :69 (30 min)
+    stuck_scan_interval_s: float = 300.0  # trainingServer.py:548
+    cpu_backpressure_pct: float = 90.0  # :80-97
+    mem_backpressure_pct: float = 85.0
+    model_name: str = "buffalo_l"
+
+
+@dataclass
+class CampusConfig:
+    """Entry/exit state machine knobs (reference peopleCount.py)."""
+
+    confirm_delay_s: float = 2.0  # :144,161 second detection >=2s later
+    pending_expiry_s: float = 5.0  # :178-185
+    batch_size: int = 50  # :249
+    batch_interval_s: float = 5.0  # :251
+    analytics_interval_s: float = 60.0  # :589-626
+    unknown_history: int = 10  # deque(maxlen=10) :68
+    frame_skip: int = 2  # :938
+    max_camera_errors: int = 10  # :944-945
+
+
+@dataclass
 class Config:
+    db: DBConfig = field(default_factory=DBConfig)
+    api: APIConfig = field(default_factory=APIConfig)
     thresholds: ThresholdConfig = field(default_factory=ThresholdConfig)
     engine: EngineConfig = field(default_factory=EngineConfig)
+    sync: SyncConfig = field(default_factory=SyncConfig)
+    worker: WorkerConfig = field(default_factory=WorkerConfig)
+    campus: CampusConfig = field(default_factory=CampusConfig)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+_default: Config | None = None
+
+
+def get_config() -> Config:
+    global _default
+    if _default is None:
+        _default = Config()
+    return _default
+
+
+def set_config(cfg: Config) -> None:
+    global _default
+    _default = cfg

@@ -4,8 +4,8 @@ aligned crops -> L2-normalized embeddings.
 The torch form of ``facerecognition_infrenceengine_tpu/engine/pipeline.py``:
 SCRFD forward -> sigmoid -> decode -> masked top-k -> greedy NMS into
 ``max_faces`` fixed slots, then Umeyama -> pyramid atlas -> K3 warp (each
-face's ROI window read straight from the atlas) -> IResNet -> L2 normalize,
-with every shape static per batch size.
+face's ROI window read straight from the atlas) -> IResNet or MobileFaceNet
+(``rec_arch``) -> L2 normalize, with every shape static per batch size.
 ``detect_align_embed_flat`` packs the outputs into one [B, F, 528] tensor
 (boxes 4 | score 1 | kps 10 | valid 1 | emb 512).
 
@@ -19,6 +19,10 @@ the raw program; "pallas" runs K4, the fused stem kernel
 (``ops/stem_kernel.py``), on the packed frames, the backbone from its
 output, and warps from a packed pyramid atlas.  ``stem_kernel="on"`` runs
 K4 on the raw path too.
+
+``attributes`` runs buffalo_l's genderage and 2d106det heads on K3 crops:
+the exact ONNX graphs when converted ones sit in the weights dir
+(``models/onnx_exec.py``), else the synthetic heads.
 
 Convolutions and the embedder's dense layer run through PyTorch (cuDNN /
 cuBLAS on the card), as the reference left them to XLA; the stem (K4), the
@@ -38,8 +42,9 @@ import torch
 from .. import native
 from ..core.config import EngineConfig
 from ..core.device import resolve_device
-from ..models import arcface, genderage, landmark106, scrfd
+from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, scrfd
 from ..models.layers import cast_keep_bn_f32
+from ..models.onnx_exec import OnnxRunner
 from ..models.weights import flatten_tree, load_or_init, load_tree, weights_dir
 from ..ops.align import ARCFACE_DST
 from ..ops.anchors import all_anchor_centers
@@ -55,6 +60,10 @@ from ..ops.yuv import yuv420p4_to_rgbp4
 # YUV black (Y = 0, U = V = 128) for canvas rows a yuv420 pack does not
 # carry: zero chroma would decode green
 _YUV_BLACK = (0,) * 16 + (128,) * 8
+
+# rec_arch -> embedder; every one reads arcface.preprocess'd 112x112 crops
+_EMBEDDERS = {"r50": arcface.iresnet50, "r18": arcface.iresnet18,
+              "mobilefacenet": mobilefacenet.mobilefacenet}
 
 
 def _stride_rows(height: int, width: int) -> np.ndarray:
@@ -113,15 +122,13 @@ class FaceEngine:
         self.cfg = cfg or EngineConfig()
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
-        if rec_arch not in ("r50", "r18"):
-            raise NotImplementedError(
-                f"rec_arch {rec_arch!r}: only r50/r18 are ported "
-                "(MobileFaceNet is ROADMAP Queue 1 item 4)")
+        if rec_arch not in _EMBEDDERS:
+            raise ValueError(f"rec_arch {rec_arch!r}: one of {sorted(_EMBEDDERS)}")
+        self.rec_arch = rec_arch
         h, w = self.cfg.det_size
         detector = _from_variables(f"scrfd_{det_arch}", scrfd.SCRFD(scrfd.CONFIGS[det_arch]),
                                    det_variables, seed)
-        embedder = _from_variables(f"arcface_{rec_arch}", arcface.iresnet50()
-                                   if rec_arch == "r50" else arcface.iresnet18(),
+        embedder = _from_variables(f"arcface_{rec_arch}", _EMBEDDERS[rec_arch](),
                                    rec_variables, seed + 1)
         # K4's BN-folded stem weights, folded from the float32 module before
         # the cast (the reference folds from its float32 variables)
@@ -139,6 +146,8 @@ class FaceEngine:
         self._strides = torch.from_numpy(_stride_rows(h, w)).to(self.device)
         self._dst = torch.from_numpy(ARCFACE_DST * (self.cfg.embed_size / 112.0)).to(self.device)
         self._attr_models = None  # (genderage, landmark106), at first use
+        self._attr_runners = None  # the exact ONNX graphs, when converted
+        self._attr_sizes = (genderage.INPUT_SIZE, landmark106.INPUT_SIZE)
 
     # -------------------------------------------------------------- programs
     def _detect_impl(self, frames_u8: torch.Tensor, det_threshold: float):
@@ -226,18 +235,31 @@ class FaceEngine:
 
     def _ensure_attr_models(self):
         """buffalo_l's genderage and 2d106det heads, loaded at first use so the
-        recognition path never pays for them: the synthetic heads
-        (``load_or_init`` seeds 7 and 8, as the reference's) in the engine's
-        dtype, BatchNorm kept f32.  Converted ONNX heads in the weights dir
-        (the reference's exact-graph executor) are not ported: they raise
-        rather than be replaced by the synthetic heads."""
+        recognition path never pays for them.  Two sources, in preference
+        order, as the reference's:
+
+        1. the exact graphs: converted ``attr_genderage.onnx`` and
+           ``attr_2d106det.onnx`` in the weights dir, run by
+           ``models/onnx_exec.OnnxRunner`` in float32 whatever the engine's
+           dtype, with the crop sizes read from the graphs' input shapes;
+        2. the synthetic heads (``load_or_init`` seeds 7 and 8, as the
+           reference's) in the engine's dtype, BatchNorm kept f32.
+        """
         if self._attr_models is None:
-            onnx = [os.path.join(weights_dir(), f) for f in ("attr_genderage.onnx",
-                                                            "attr_2d106det.onnx")]
-            if all(os.path.exists(p) for p in onnx):
-                raise NotImplementedError(
-                    f"{onnx}: the exact-graph attribute executor (models/onnx_exec.py + "
-                    "onnxlite.py) is ROADMAP Queue 1 item 3")
+            paths = [os.path.join(weights_dir(), f) for f in ("attr_genderage.onnx",
+                                                              "attr_2d106det.onnx")]
+            if all(os.path.exists(p) for p in paths):
+                runners = tuple(OnnxRunner(onnxlite.load(p), device=self.device) for p in paths)
+
+                def in_size(r, default):
+                    shp = r.input_shapes[r.input_names[0]]
+                    return int(shp[-1]) if len(shp) == 4 and shp[-1] > 0 else default
+
+                self._attr_runners = runners
+                self._attr_sizes = (in_size(runners[0], genderage.INPUT_SIZE),
+                                    in_size(runners[1], landmark106.INPUT_SIZE))
+                self._attr_models = runners
+                return self._attr_models
             fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
             self._attr_models = tuple(
                 cast_keep_bn_f32(load_or_init(name, model, seed), self.device, self.dtype, fmt)
@@ -248,16 +270,25 @@ class FaceEngine:
     def _attributes_impl(self, frames_u8, frame_idx, bboxes):
         """Gender, age and 106 landmarks of M boxes (frame coordinates): the
         square window of side max(w, h) * 1.5 around each box, resampled by
-        K3 to each head's input size; gender = argmax(out[:2]), age =
-        round(out[2] * 100), landmarks (out + 1) * size / 2 mapped back
-        through the crop's affine."""
+        K3 to each head's input size from one pyramid atlas; gender =
+        argmax(out[:2]), age = round(out[2] * 100), landmarks (out + 1) *
+        size / 2 mapped back through the crop's affine.  The exact graphs
+        take NCHW float32 crops, mean 0 / std 1 (insightface's blob settings
+        for these two heads), and their first output."""
         ga_model, lm_model = self._ensure_attr_models()
-        ga_size, lm_size = genderage.INPUT_SIZE, landmark106.INPUT_SIZE
+        ga_size, lm_size = self._attr_sizes
         atlas = build_atlas(frames_u8)  # one pyramid for both crop sizes
-        ga_out = ga_model(genderage.preprocess(warp_boxes_two_pass(
-            frames_u8, frame_idx, bboxes, ga_size, scale_factor=1.5, atlas=atlas)))
-        lm = lm_model(genderage.preprocess(warp_boxes_two_pass(
-            frames_u8, frame_idx, bboxes, lm_size, scale_factor=1.5, atlas=atlas)))
+        ga_crops = warp_boxes_two_pass(frames_u8, frame_idx, bboxes, ga_size,
+                                       scale_factor=1.5, atlas=atlas)
+        lm_crops = warp_boxes_two_pass(frames_u8, frame_idx, bboxes, lm_size,
+                                       scale_factor=1.5, atlas=atlas)
+        if self._attr_runners is not None:
+            ga_out = ga_model(ga_crops.permute(0, 3, 1, 2).float())[0]
+            lm = lm_model(lm_crops.permute(0, 3, 1, 2).float())[0]
+            lm = lm.reshape(lm.shape[0], -1, 2)
+        else:
+            ga_out = ga_model(genderage.preprocess(ga_crops))
+            lm = lm_model(genderage.preprocess(lm_crops))
         gender = torch.argmax(ga_out[:, :2], dim=1)
         age = torch.round(ga_out[:, 2] * 100.0)
         lm_px = (lm + 1.0) * (lm_size / 2.0)

@@ -5,7 +5,8 @@ The torch form of ``facerecognition_infrenceengine_tpu/models/zoo.py``:
 ``get_batch(frames)`` return ``Face`` objects with ``bbox``, ``det_score``,
 ``kps``, ``normed_embedding`` and, with the genderage and landmark_2d_106
 modules (on by default, as in buffalo_l), ``gender``, ``age`` and
-``landmark_2d_106``.
+``landmark_2d_106``.  The pack name selects the recognizer: ``"buffalo_l"``
+IResNet-50, ``"mobile_facenet_v1"`` MobileFaceNet.
 
 Frames of any size are letterboxed onto the detector canvas by the host
 codec (``native.letterbox``).  When every frame of a batch fits the canvas
@@ -66,9 +67,6 @@ class FaceAnalysis:
 
     def __init__(self, name: str = "buffalo_l", cfg: EngineConfig | None = None,
                  engine=None, allowed_modules=None, device=None):
-        if "facenet" in name:
-            raise NotImplementedError(
-                f"pack {name!r}: MobileFaceNet is ROADMAP Queue 1 item 4")
         self.name = name
         self.cfg = cfg or EngineConfig()
         self.device = device
@@ -89,7 +87,10 @@ class FaceAnalysis:
 
     def _ensure_engine(self):
         if self._engine is None:
-            self._engine = FaceEngine(self.cfg, rec_arch="r50", device=self.device)
+            # the pack name selects the recognizer: buffalo_l -> IResNet-50,
+            # mobile_facenet_v1 -> MobileFaceNet
+            rec_arch = "mobilefacenet" if "facenet" in self.name else "r50"
+            self._engine = FaceEngine(self.cfg, rec_arch=rec_arch, device=self.device)
         return self._engine
 
     @property

@@ -466,3 +466,33 @@ def test_top1_int8_kernel_is_one_device_kernel_a_call(cuda, int8_gallery, b):
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     assert len(events) == 1 and events[0][1] == calls, events
     assert "top1_int8" in events[0][0]
+
+
+def test_onnx_runner_and_mobilefacenet_on_the_card_equal_the_cpu(cuda):
+    """The exact-graph executor (the synthetic heads as buffalo_l-shaped
+    graphs, a batch-1 Reshape rebound to 5) and MobileFaceNet in float32 on
+    the card against the CPU; TF32 is off, so only summation order differs."""
+    from facerecognition_infrenceengine_tpu_torch.models import (
+        arcface, genderage, landmark106, mobilefacenet, onnxlite)
+    from facerecognition_infrenceengine_tpu_torch.models.onnx_exec import OnnxRunner
+    from facerecognition_infrenceengine_tpu_torch.models.onnx_export import head_graph
+    from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
+
+    rng = np.random.default_rng(21)
+    for model, size, seed, reshape in ((genderage.GenderAge(), 96, 7, False),
+                                       (landmark106.Landmark106(), 192, 8, True)):
+        graph = onnxlite.parse_model(head_graph(
+            load_or_init("genderage" if size == 96 else "landmark_2d_106", model, seed),
+            size, reshape))
+        x = rng.uniform(0, 255, (5, 3, size, size)).astype(np.float32)
+        want = OnnxRunner(graph, device="cpu")(x)[0].numpy()
+        got = OnnxRunner(graph, device=cuda)(x)[0].cpu().numpy()
+        assert got.shape == want.shape == (5, model.Dense_0.out_features)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    m = load_or_init("arcface_mobilefacenet", mobilefacenet.mobilefacenet(), 1)
+    crops = torch.from_numpy(rng.integers(0, 256, (8, 112, 112, 3), dtype=np.uint8))
+    with torch.no_grad():
+        want = m(arcface.preprocess(crops)).numpy()
+        got = m.to(cuda)(arcface.preprocess(crops.to(cuda))).cpu().numpy()
+    cos = (want * got).sum(1) / np.linalg.norm(want, axis=1) / np.linalg.norm(got, axis=1)
+    assert cos.min() >= 1 - 1e-4, cos

@@ -24,6 +24,7 @@ from facerecognition_infrenceengine_tpu.models.zoo import FaceAnalysis as JaxFac
 from facerecognition_infrenceengine_tpu.models.zoo import letterbox as jax_letterbox
 from facerecognition_infrenceengine_tpu_torch.core.config import Config, EngineConfig, ThresholdConfig
 from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+from facerecognition_infrenceengine_tpu_torch.store import Datastore
 from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine
 from facerecognition_infrenceengine_tpu_torch.engine.recognizer import FaceRecognitionProcessor
 from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis, letterbox
@@ -107,7 +108,7 @@ def test_face_analysis_and_match_decisions_match_reference(engines, frames_bgr):
 
     jax_proc = JaxProcessor(_JaxGallery(), face_app=jax_app)
     jax_proc.recognition_threshold = threshold
-    galleries = GalleryManager(cfg, device="cpu")
+    galleries = GalleryManager(Datastore(cfg), cfg, initial_load=False, device="cpu")
     galleries.set_snapshot(ids, meta, matrix, company_id="c1")
     proc = FaceRecognitionProcessor(galleries, face_app=app, cfg=cfg)
     recognized = 0
@@ -149,10 +150,15 @@ def test_letterbox_matches_reference_at_unit_scale():
 
 
 def test_unported_packs_and_modules_raise(engines, frames_bgr):
-    """MobileFaceNet still raises; the genderage module gives the
-    reference's gender and age (and no landmarks) on the same frames."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaceAnalysis(name="mobile_facenet_v1", device="cpu")
+    """The mobile_facenet_v1 pack, which raised before MobileFaceNet was
+    ported, now selects it (tests/test_torch_mobilefacenet.py holds it); the
+    genderage module gives the reference's gender and age (and no landmarks)
+    on the same frames."""
+    from facerecognition_infrenceengine_tpu_torch.models.mobilefacenet import MobileFaceNet
+
+    mfn = FaceAnalysis(name="mobile_facenet_v1", cfg=EngineConfig(**KW), device="cpu")
+    assert mfn._ensure_engine().rec_arch == "mobilefacenet"
+    assert isinstance(mfn._ensure_engine().embedder, MobileFaceNet)
     jax_engine, engine = engines
     modules = ("detection", "recognition", "genderage")
     jax_app = JaxFaceAnalysis(cfg=JaxEngineConfig(**KW), engine=jax_engine,
@@ -174,4 +180,4 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FaceAnalysis(cfg=EngineConfig(**KW)).prepare()
     with pytest.raises(RuntimeError, match="CUDA"):
-        GalleryManager()
+        GalleryManager(Datastore())

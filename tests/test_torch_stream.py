@@ -26,6 +26,7 @@ from facerecognition_infrenceengine_tpu.ops import stem_pallas
 from facerecognition_infrenceengine_tpu_torch.core.config import Config, EngineConfig
 from facerecognition_infrenceengine_tpu_torch.core.config import ThresholdConfig
 from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+from facerecognition_infrenceengine_tpu_torch.store import Datastore
 from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine, bucket
 from facerecognition_infrenceengine_tpu_torch.engine.recognizer import FaceRecognitionProcessor
 from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis
@@ -177,7 +178,7 @@ def test_face_analysis_yuv_transport_and_int8_decisions_match_reference(engines)
     ids = [f"p{i}" for i in range(len(matrix))]
     meta = {pid: {"type": "employee", "name": pid} for pid in ids}
     cfg = Config(thresholds=ThresholdConfig(recognition=0.5), engine=EngineConfig(**STREAM))
-    galleries = GalleryManager(cfg, device="cpu")
+    galleries = GalleryManager(Datastore(cfg), cfg, initial_load=False, device="cpu")
     snap = galleries.set_snapshot(ids, meta, matrix, company_id="c1")
     ref_snap = JaxSnapshot(ids, meta, matrix, 512, 1024, dtype="int8")
     np.testing.assert_array_equal(snap.device_matrix.numpy(), np.asarray(ref_snap.device_matrix))

@@ -39,6 +39,7 @@ from facerecognition_infrenceengine_tpu.ops import warp2pass as jax_warp
 from facerecognition_infrenceengine_tpu_torch.core.config import Config, EngineConfig
 from facerecognition_infrenceengine_tpu_torch.core.config import ThresholdConfig
 from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+from facerecognition_infrenceengine_tpu_torch.store import Datastore
 from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine, bucket
 from facerecognition_infrenceengine_tpu_torch.engine.recognizer import FaceRecognitionProcessor
 from facerecognition_infrenceengine_tpu_torch.models import zoo
@@ -269,14 +270,35 @@ def test_bbox_crops_and_pyramid_levels_match_reference(out_size):
 
 
 def test_converted_onnx_heads_raise_instead_of_synthetic(engines, tmp_path, monkeypatch):
+    """Converted heads in the weights dir are never replaced by the synthetic
+    ones: files that are not ONNX graphs raise (as in the reference), and the
+    synthetic heads written as graphs (onnx_export.head_graph) run through
+    the exact-graph executor, which gives the synthetic heads' decisions
+    (before the executor was ported, any converted file raised)."""
+    from facerecognition_infrenceengine_tpu_torch.models import genderage, landmark106
+    from facerecognition_infrenceengine_tpu_torch.models.onnx_export import head_graph
+    from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
+
     _, port = engines
+    frames = np.random.default_rng(12).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)
+    idx, boxes = np.zeros(2, np.int32), np.array([[0, 0, 32, 32], [8, 4, 60, 62]], np.float32)
+    synthetic = FaceEngine(EngineConfig(**KW), device="cpu", **ARCH).attributes(frames, idx, boxes)
     engine = FaceEngine(EngineConfig(**KW), device="cpu", **ARCH)
     for name in ("attr_genderage.onnx", "attr_2d106det.onnx"):
         (tmp_path / name).write_bytes(b"")
     monkeypatch.setenv("FRE_WEIGHTS_DIR", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        engine.attributes(np.zeros((1, 64, 64, 3), np.uint8), np.zeros(1, np.int32),
-                          np.array([[0, 0, 32, 32]], np.float32))
+    with pytest.raises(ValueError, match="GraphProto"):
+        engine.attributes(frames, idx, boxes)
+    (tmp_path / "attr_genderage.onnx").write_bytes(
+        head_graph(load_or_init("genderage", genderage.GenderAge(), 7), 96))
+    (tmp_path / "attr_2d106det.onnx").write_bytes(
+        head_graph(load_or_init("landmark_2d_106", landmark106.Landmark106(), 8), 192, True))
+    engine = FaceEngine(EngineConfig(**KW), device="cpu", **ARCH)
+    got = engine.attributes(frames, idx, boxes)
+    assert engine._attr_runners is not None and engine._attr_sizes == (96, 192)
+    np.testing.assert_array_equal(got[0], synthetic[0])
+    np.testing.assert_allclose(got[1], synthetic[1], rtol=0, atol=1.0)
+    np.testing.assert_allclose(got[2], synthetic[2], rtol=0, atol=1e-3)
 
 
 def _perturbed(variables, seed):
@@ -375,7 +397,7 @@ def test_match_faces_draws_the_reference_hud(apps, served):
 
     jax_proc = JaxProcessor(_JaxGallery(), face_app=jax_app)
     jax_proc.recognition_threshold = threshold
-    galleries = GalleryManager(cfg, device="cpu")
+    galleries = GalleryManager(Datastore(cfg), cfg, initial_load=False, device="cpu")
     galleries.set_snapshot(ids, meta, matrix, company_id="c1")
     proc = FaceRecognitionProcessor(galleries, face_app=app, cfg=cfg)
     kinds_seen = set()
