@@ -130,7 +130,65 @@ Phases, one flushed line each:
    them), timed in turns, beside atlas_ms.  K1's wrapper is also timed at
    B = 1 with its scratch cache emptied before every call (`ms_uncached`):
    the per-call allocations and library lookups the cache removes.
-11. the card line, then {"ok": true, "device": ...} as the last line.
+11. server (after the kernels' own traces, which an earlier trace has been
+   seen to leave empty): the live recognition server, twice, over one
+   memory:// store of about 2,000 employees behind a GalleryManager with its
+   sync thread running.  First the batch witness: request 1's 8 frames
+   through run a's path, run b's path and run b's path with K4's plain
+   version, in every run of n = 1..8 consecutive frames from each offset:
+   each frame's faces must be bit-identical in every batch of one bucket
+   (1, 2, 4, 8) whatever its neighbours and position; how far they move
+   between buckets is printed, beside K4 on each frame alone against in the
+   batch of 8 (bit for bit), K4 against its plain version at B = 1, 2, 4, 8,
+   the detector's logits alone against in the batch from bit-identical
+   stems, and the anchors at the saturated score 1.0.  Each run's company
+   enrolls every distinct face of its path's table (all buckets) plus
+   seeded distractors.  build_app is served on 127.0.0.1 by
+   web.serving.serve and every control call is an HTTP request; four
+   stand-in cameras (a cv2.VideoCapture replaying request 1's BGR 640x480
+   frames at 30 fps: the camera, never the card) feed CameraManager ->
+   MicroBatcher.  Run a is the server as the reference ships it: Config()
+   set as the process config, CameraManager builds FaceAnalysis("buffalo_l")
+   with its four default modules on the card itself (K3 at 112, 96 and 192,
+   K1 on the f32 gallery, the HUD).  Run b is the streaming profile:
+   EngineConfig(stream_transport="yuv420", upload_on_submit=True,
+   packed_stem_impl="pallas", gallery_dtype="int8", stream_profile="auto"),
+   detection + recognition: each pack encoded and uploaded on its capture
+   thread, stacked on the card, K4, K3 on the packed windows, K2.  In each
+   run: /api/camera/start without a company is 400 and with one succeeds,
+   /api/embeddings/stats counts every employee, /api/embeddings/sync
+   succeeds; after a warm-up, an 8 s window with the launch counters zeroed
+   at its start: every face of every resolved frame lies within 1 px (box)
+   and 1e-5 (1 - cos) of its bucket's face, is the host's float64 top-1
+   over its company (within 1e-5) as its own enrolled id, and no id goes to
+   two distinct faces; run a decides each face as its own id (or one
+   within 1e-5) at >= 0.99; run b's K2 ids and scores equal the plain int8
+   version's, and its id is the face's own wherever the float64 top-1
+   leads the runner-up by more than 5e-3; each dispatch launches K3 once at
+   each crop size (and K4 once, run b) and each matched frame K1 (K2) once;
+   a dispatch holds more than one frame, the cameras capture more frames
+   than are dispatched, no future ends in an exception; in run b a batch
+   is dispatched while the one before is unresolved (and the dispatches
+   that returned with their batch still on the card are counted), and every
+   stacked batch reaches the engine on the card.  Before the runs,
+   get_batch_async on run b's uploaded packs makes no synchronizing CUDA
+   call (sync debug mode "error") and no host->device copy (its trace);
+   its kernel count is printed beside the launches the stream takes
+   behind a held stream (torch.cuda._sleep) before a launch waits.  Then /api/profiler/start and /stop (1 s
+   apart, two request threads) write a trace holding the path's kernels'
+   device events, /api/metrics shows the batcher's frames and dispatch
+   timer, and /api/camera/stop ends every capture, dispatch, resolver and
+   results thread within 10 s.  Printed: frames offered, captured and
+   dispatched, the average batch and drop share, resolved frames/s, p50 and
+   p90 submit -> resolve latency, the results stage's drops, run b's
+   controller log, and the host over the window: each thread role's CPU
+   (from /proc) beside the share of the window it spent inside its call,
+   and run b's encode_frame on the capture threads (with the upload)
+   against encode_frame alone, with and without the upload.  Last,
+   ``python -m facerecognition_infrenceengine_tpu_torch.servers.
+   inference_server`` in a subprocess (MONGODB_URI=memory://) answers
+   /api/embeddings/stats and exits 0 on SIGTERM.
+12. the card line, then {"ok": true, "device": ...} as the last line.
 
     python3 chip_smoke.py --profile
 
@@ -146,14 +204,22 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import faulthandler
 import json
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+import weakref
+from collections import Counter
 
 import numpy as np
 
@@ -180,6 +246,15 @@ STEM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/stem.cu"
 HAND_KERNELS = ("warp_windows_kernel", "top1_f32_kernel", "top1_bf16_kernel", "top1_int8_kernel",
                 "fused_stem")
 INT8_MARGIN = 5e-3  # f32 top-1 lead over the runner-up above which int8 must agree
+SERVER_PERSONS = 2_000          # the server phase's store (its sync thread audits every id)
+SERVER_CAMERAS = 4
+SERVER_FPS = 30.0               # each stand-in camera's frame rate
+SERVER_WARMUP_S = 3.0           # after the first result, before the measured window
+SERVER_WINDOW_S = 8.0
+SERVER_BUCKETS = (1, 2, 4, 8)   # the batch shapes a batcher of microbatch_max 8 dispatches
+# the cv2 constants CameraManager sets on its capture (OpenCV's values)
+CAP_PROPS = {"CAP_PROP_FRAME_WIDTH": 3, "CAP_PROP_FRAME_HEIGHT": 4, "CAP_PROP_FPS": 5,
+             "CAP_PROP_BUFFERSIZE": 38}
 
 
 def say(*parts) -> None:
@@ -436,6 +511,929 @@ def in_frame_boxes(rng, n: int, shapes) -> tuple:
         boxes.append([x1, y1, x1 + bw, y1 + bh])
         idx.append(k % len(shapes))
     return np.asarray(boxes, np.float32), np.asarray(idx)
+
+
+def write_people(ds, company, vecs, prefix):
+    """Employees as registration + the enrollment worker leave them, in bulk
+    (one GridFS put a person, one insert_many) -> their ids (hex)."""
+    from facerecognition_infrenceengine_tpu_torch.core.clock import get_current_utc
+    from facerecognition_infrenceengine_tpu_torch.core.serialization import serialize_embedding
+    from facerecognition_infrenceengine_tpu_torch.store import ObjectId
+
+    docs = []
+    for n, v in enumerate(vecs):
+        pid = ObjectId()
+        fid = ds.employee_embeddings.put(serialize_embedding(v),
+                                         filename=f"{company}_{pid}_buffalo_l.pkl")
+        now = get_current_utc()
+        docs.append({"_id": pid, "companyId": company, "employeeId": f"{prefix}{n:05d}",
+                     "employeeName": f"{prefix}{n:05d}", "status": "active",
+                     "blacklisted": False, "lastUpdated": now,
+                     "employeeEmbeddings": {"buffalo_l": {
+                         "embeddingId": fid, "status": "done", "createdAt": now,
+                         "finishedAt": now, "corrupt": False}}})
+    ds.employee_info.insert_many(docs)
+    return [str(d["_id"]) for d in docs]
+
+
+class ReplayCapture:
+    """The server phase's stand-in for cv2.VideoCapture (it replaces the
+    camera, never the card or a kernel): each capture replays ``frames`` in
+    a loop at SERVER_FPS, a fresh copy a read (the results stage draws its
+    HUD into the frame it gets), and tags the copy with its index in
+    ``frames`` (``frame_index``)."""
+
+    frames: list = []
+    offered = 0
+    _tags: dict = {}
+    _lock = threading.Lock()
+
+    def __init__(self, source):
+        self.k = 0
+        self.next_t = time.perf_counter()
+
+    def isOpened(self):
+        return True
+
+    def set(self, *_):
+        return True
+
+    def read(self):
+        delay = self.next_t - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        # a read that comes late does not earn a burst of catch-up reads
+        self.next_t = max(self.next_t, time.perf_counter() - 1.0 / SERVER_FPS) + 1.0 / SERVER_FPS
+        k = self.k % len(self.frames)
+        self.k += 1
+        frame = self.frames[k].copy()
+        with ReplayCapture._lock:
+            ReplayCapture._tags[id(frame)] = (weakref.ref(frame), k)
+            ReplayCapture.offered += 1
+        return True, frame
+
+    def release(self):
+        pass
+
+    @classmethod
+    def frame_index(cls, frame) -> int:
+        with cls._lock:
+            ref, k = cls._tags[id(frame)]
+        check(ref() is frame, "a frame's tag belongs to another frame")
+        return k
+
+
+def install_camera(frames):
+    """Make ``cv2.VideoCapture`` ReplayCapture over ``frames``: patched into
+    OpenCV where it is importable, else a module holding only VideoCapture
+    and the CAP_PROP_* constants -> a function that undoes it."""
+    import importlib.util
+    import types
+
+    ReplayCapture.frames = list(frames)
+    if importlib.util.find_spec("cv2") is None:
+        mod = types.ModuleType("cv2")
+        mod.VideoCapture = ReplayCapture
+        for name, value in CAP_PROPS.items():
+            setattr(mod, name, value)
+        sys.modules["cv2"] = mod
+        return lambda: sys.modules.pop("cv2", None)
+    import cv2
+
+    old = cv2.VideoCapture
+    cv2.VideoCapture = ReplayCapture
+    return lambda: setattr(cv2, "VideoCapture", old)
+
+
+_NO_PROXY = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http_json(method: str, url: str, body=None, timeout: float = 300.0):
+    """One HTTP request to the local control API -> (status, JSON body)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with _NO_PROXY.open(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read() or b"null")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def trace_kernels(logdir: str) -> tuple:
+    """The Chrome trace(s) of ``logdir`` -> (device kernels, name -> count;
+    the device's busy share: kernels, copies and memsets over the trace's
+    span; one stream, so they do not overlap)."""
+    names, busy, t_lo, t_hi = Counter(), 0.0, float("inf"), 0.0
+    for name in os.listdir(logdir):
+        with open(os.path.join(logdir, name)) as f:
+            for ev in json.load(f).get("traceEvents", []):
+                if "ts" not in ev or ev.get("ph") != "X":
+                    continue
+                t_lo = min(t_lo, float(ev["ts"]))
+                t_hi = max(t_hi, float(ev["ts"]) + float(ev.get("dur", 0)))
+                cat = str(ev.get("cat", "")).lower()
+                if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+                    busy += float(ev.get("dur", 0))
+                if cat == "kernel":
+                    names[ev.get("name", "")] += 1
+    return names, busy / max(t_hi - t_lo, 1.0)
+
+
+def _faces_key(faces) -> tuple:
+    """A frame's faces -> (boxes [m, 4], embeddings [m, 512]) float32."""
+    return (np.asarray([f.bbox for f in faces], np.float32).reshape(-1, 4),
+            np.asarray([f.normed_embedding for f in faces], np.float32).reshape(-1, 512))
+
+
+def batch_witness(torch, card: str, frames: list, paths: dict) -> dict:
+    """Whether a frame's faces depend on the batch it rides in.  Each path
+    (name -> a get_batch over BGR frames) serves every run of n = 1..8
+    consecutive ``frames`` (round robin, from each of the 8 offsets), so each
+    frame rides at every position beside different neighbours in every
+    bucket the batcher dispatches.  Per path and bucket: whether every batch
+    of that bucket gave each frame bit-identical faces (boxes and
+    embeddings), and how far they lie from the frame's faces at bucket 8.
+    Returns {path: {bucket: [frame k's (boxes, embeddings)]}} for the paths
+    whose faces depend on the bucket alone; a path whose faces also depend
+    on the neighbours or the position fails the check."""
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import bucket
+
+    n_fr = len(frames)
+    tables = {}
+    for name, get_batch in paths.items():
+        seen = {}  # (bucket, k) -> distinct (boxes, embeddings) byte strings -> one of them
+        for n in range(1, n_fr + 1):
+            for off in range(n_fr):
+                ks = [(off + i) % n_fr for i in range(n)]
+                for k, faces in zip(ks, get_batch([frames[k] for k in ks])):
+                    boxes, embs = _faces_key(faces)
+                    seen.setdefault((bucket(n), k), {})[boxes.tobytes() + embs.tobytes()] = (
+                        boxes, embs)
+        buckets = sorted({b for b, _ in seen})
+        variants = {b: max(len(seen[(b, k)]) for k in range(n_fr)) for b in buckets}
+        parts = []
+        for b in buckets:
+            other_count, shift, cos = 0, 0.0, 0.0
+            for k in range(n_fr):
+                (bx, em), = list(seen[(b, k)].values())[:1]
+                (bx8, em8), = list(seen[(buckets[-1], k)].values())[:1]
+                if len(bx) != len(bx8):
+                    other_count += 1
+                    continue
+                if len(bx):
+                    shift = max(shift, float(np.abs(bx - bx8).max()))
+                    cos = max(cos, float(1.0 - (em * em8).sum(1).min()))
+            parts.append(f"bucket {b}: {variants[b]} variant(s) a frame; against bucket "
+                         f"{buckets[-1]} {other_count}/{n_fr} frames with another face count, "
+                         f"boxes within {shift:.3f} px, 1 - cos <= {cos:.2e}")
+        say(f"[server] batch witness, {name}: " + "; ".join(parts))
+        check(all(v == 1 for v in variants.values()),
+              f"[server] {name}: a frame's faces depend on its neighbours or its position in "
+              f"the batch, not only on the bucket: {variants}")
+        tables[name] = {b: [next(iter(seen[(b, k)].values())) for k in range(n_fr)]
+                        for b in buckets}
+    return tables
+
+
+def stem_witness(torch, card: str, app, frames: list) -> dict:
+    """Where a frame's detections come to depend on the bucket, on the yuv
+    path's app: K4 on each frame alone against the same frame in the batch
+    of 8 (bit for bit), K4 against its plain version at B = 1, 2, 4 and 8,
+    and the detector's logits of each frame alone against in the batch from
+    bit-identical stem outputs; then how many anchors sit at the saturated
+    score 1.0, where the masked top-k breaks ties by anchor index."""
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import yuv_black
+    from facerecognition_infrenceengine_tpu_torch.ops import stem_kernel
+    from facerecognition_infrenceengine_tpu_torch.ops.yuv import yuv420p4_to_rgbp4
+
+    engine = app._ensure_engine()
+    wts, sw = engine.stem_weights, engine.stem_width
+    out = {}
+    with torch.inference_mode():
+        # the packed RGB frames K4 reads on the path (_fused_yuv_impl)
+        y24 = torch.as_tensor(app._stack_yuv([app.encode_frame(f) for f in frames],
+                                             engine.cfg.det_size[1]), device=engine.device)
+        b, rows, w4, _ = y24.shape
+        dh = engine.cfg.det_size[0] // 4
+        if rows < dh:
+            y24 = torch.cat([y24, yuv_black((b, dh - rows, w4), y24.device)], dim=1)
+        x48 = yuv420p4_to_rgbp4(y24)
+        s8 = stem_kernel.fused_stem_s2d4(x48, wts, sw)
+        alone = [stem_kernel.fused_stem_s2d4(x48[k:k + 1].contiguous(), wts, sw)
+                 for k in range(x48.shape[0])]
+        out["k4_alone_equal"] = all(torch.equal(a[0], s8[k]) for k, a in enumerate(alone))
+        p8 = stem_kernel.fused_stem_plain(x48, wts, sw)
+        out["plain_alone_equal"] = all(
+            torch.equal(stem_kernel.fused_stem_plain(x48[k:k + 1].contiguous(), wts, sw)[0],
+                        p8[k]) for k in range(x48.shape[0]))
+        vs_plain = {}
+        for b in (1, 2, 4, 8):
+            got = stem_kernel.fused_stem_s2d4(x48[:b].contiguous(), wts, sw).float()
+            want = stem_kernel.fused_stem_plain(x48[:b].contiguous(), wts, sw).float()
+            err, top = float((got - want).abs().max()), float(want.abs().max())
+            same = float((got == want).float().mean())
+            check(err <= 2.0 ** -6 * top and same >= 0.9,
+                  f"K4 bf16 B={b}: err {err} (max {top}), equal share {same}")
+            vs_plain[b] = (err, same)
+        out["k4_vs_plain"] = vs_plain
+        l8 = engine.detector(None, stem_out=s8)[0][..., 0].float()
+        diff, sat, at_cut = 0.0, [], []
+        for k, a in enumerate(alone):
+            l1 = engine.detector(None, stem_out=a)[0][0, ..., 0].float()
+            diff = max(diff, float((l1 - l8[k]).abs().max()))
+        scores = torch.sigmoid(engine.detector(None, stem_out=s8)[0][..., 0])
+        for k in range(x48.shape[0]):
+            sk = scores[k].float()
+            sat.append(int((sk == 1.0).sum()))
+        out.update(logits_alone_max_diff=diff, logits_max=float(l8.abs().max()),
+                   saturated_anchors=sat, anchors=int(scores.shape[1]),
+                   score_dtype=str(scores.dtype))
+    say(f"[server] stem witness {card}: K4 on each frame alone == in the batch of 8 bit for "
+        f"bit: {out['k4_alone_equal']} (the plain version: {out['plain_alone_equal']}); K4 vs "
+        f"plain (max abs err, equal share) "
+        f"{ {b: (f'{e:.2e}', round(s, 4)) for b, (e, s) in vs_plain.items()} }; detector "
+        f"logits of a frame alone vs in the batch of 8 from bit-identical stems: max diff "
+        f"{diff:.3e} (|logits| up to {out['logits_max']:.1f}); anchors at score 1.0 "
+        f"({out['score_dtype']}) per frame {sat} of {out['anchors']}")
+    return out
+
+
+def trace_host(logdir: str, roles: dict) -> dict:
+    """The CUDA runtime calls in the Chrome trace(s) of ``logdir``, by the
+    thread that made them: role (``roles``: name -> threads; a thread no
+    role holds is "tid <n>") -> kind (launch, copy, sync, other) -> [calls,
+    ms]."""
+    role_of = {t.native_id: role for role, ts in roles.items() for t in ts}
+    out = {}
+    for name in os.listdir(logdir):
+        with open(os.path.join(logdir, name)) as f:
+            events = json.load(f).get("traceEvents", [])
+        for ev in events:
+            if ev.get("ph") != "X" or str(ev.get("cat", "")).lower() not in (
+                    "cuda_runtime", "cuda_driver"):
+                continue
+            call = ev.get("name", "")
+            kind = ("launch" if "Launch" in call else "copy" if "Memcpy" in call
+                    else "sync" if "Synchronize" in call else "other")
+            role = role_of.get(ev.get("tid"), f"tid {ev.get('tid')}")
+            acc = out.setdefault(role, {}).setdefault(kind, [0, 0.0])
+            acc[0] += 1
+            acc[1] += float(ev.get("dur", 0)) / 1e3
+    return out
+
+
+def host_line(calls: dict) -> str:
+    """trace_host's record of one thread (or role) as text."""
+    return ", ".join(f"{kind} {n} calls {ms:.1f} ms ({1e3 * ms / max(n, 1):.1f} us each)"
+                     for kind, (n, ms) in sorted(calls.items())) or "no CUDA calls"
+
+
+def server_phase(torch, card: str, frames: list, cfg_a, cfg_b, persons: int = SERVER_PERSONS,
+                 dev_type: str = "cuda") -> list:
+    """The live server twice over one memory:// store of ``persons``
+    employees: run a as the reference ships it (``cfg_a``, the process
+    config: CameraManager builds FaceAnalysis("buffalo_l") with its four
+    modules itself, f32 gallery, K3 at 112/96/192 and K1), run b on the
+    streaming profile (``cfg_b``: yuv420 packs uploaded on the capture
+    threads, stacked on the card, K4, K3 on packed windows and K2 on an int8
+    gallery).  Each serves SERVER_CAMERAS stand-in cameras replaying
+    ``frames`` at SERVER_FPS through CameraManager -> MicroBatcher, behind
+    build_app on 127.0.0.1; every control call is an HTTP request.  Before
+    the runs, batch_witness and stem_witness give each frame's faces in each
+    bucket, and each run's company enrolls every distinct one of them, plus
+    seeded distractors up to ``persons`` // 2.  Returns the two runs'
+    records."""
+    from facerecognition_infrenceengine_tpu_torch.core import config as core_config
+    from facerecognition_infrenceengine_tpu_torch.engine import pipeline
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis
+    from facerecognition_infrenceengine_tpu_torch.ops import stem_kernel
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore, ObjectId
+
+    dev = torch.device(dev_type)
+    previous = core_config.get_config()
+    # run a's twin (CameraManager builds its own, with the same seeded
+    # weights) and run b's app; each warmed on every batch shape
+    t0 = time.perf_counter()
+    twin_a = FaceAnalysis("buffalo_l", cfg=cfg_a.engine)
+    twin_a.prepare(ctx_id=0, det_thresh=cfg_a.thresholds.detection)
+    app_b = FaceAnalysis("buffalo_l", cfg=cfg_b.engine,
+                         allowed_modules=("detection", "recognition"))
+    app_b.prepare(ctx_id=0, det_thresh=cfg_b.thresholds.detection)
+    for n in SERVER_BUCKETS:
+        twin_a.get_batch(frames[:n])
+        app_b.get_batch(frames[:n])
+
+    def plain_stem(batch):  # run b's path with K4's plain version in its place
+        pipeline.fused_stem_s2d4 = stem_kernel.fused_stem_plain
+        try:
+            return app_b.get_batch(batch)
+        finally:
+            pipeline.fused_stem_s2d4 = stem_kernel.fused_stem_s2d4
+
+    # what each frame must give in each bucket, and why it differs between
+    # buckets; each run's company enrolls every distinct face of its table
+    tables = batch_witness(torch, card, frames, {"rgb + heads (run a)": twin_a.get_batch,
+                                                 "yuv420 K4 (run b)": app_b.get_batch,
+                                                 "yuv420 plain stem": plain_stem})
+    witness = stem_witness(torch, card, app_b, frames) if dev.type == "cuda" else {}
+    del twin_a
+    if dev.type == "cuda":
+        # get_batch_async on uploaded packs may not wait for the card: no
+        # synchronizing call (.item(), nonzero, a device->host copy: torch's
+        # sync debug mode raises on one), and no host->device copy (from
+        # pageable memory the copy first waits for the stream; the debug mode
+        # does not see it, the trace does)
+        packs = [app_b.encode_frame(f) for f in frames]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            resolve = app_b.get_batch_async(packs)
+        except RuntimeError as e:
+            fail(f"[server] get_batch_async on uploaded yuv packs synchronized: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(len(resolve()) == len(frames), "[server] get_batch_async resolved no frames")
+        rows = device_events(torch, lambda: app_b.get_batch_async(packs)(), 1)
+        htod = [(key, n) for key, n, _ in rows if "HtoD" in key]
+        check(not htod, f"[server] get_batch_async copied host memory to the card: {htod}")
+        kernels_per_batch = sum(n for key, n, _ in rows if not key.startswith("Mem"))
+        # how far a dispatch can run ahead of the card: the launches the
+        # stream takes behind a held stream (torch.cuda._sleep) before a
+        # launch waits, against the kernels of one dispatch
+        x = torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)
+        queue_depth = None
+        for n in range(16384):
+            t1 = time.perf_counter()
+            x.add_(1)
+            if time.perf_counter() - t1 > 0.05:
+                queue_depth = n
+                break
+        torch.cuda.synchronize()
+        witness.update(kernels_per_batch8=kernels_per_batch, launch_queue_depth=queue_depth)
+        say(f"[server] get_batch_async on 8 uploaded yuv packs made no synchronizing CUDA call "
+            f"(torch.cuda.set_sync_debug_mode('error')) and no host->device copy (its copies: "
+            f"{sorted(key for key, _, _ in rows if key.startswith('Mem'))}); a dispatch runs "
+            f"{kernels_per_batch} kernels, and behind a held stream a launch waited after "
+            f"{queue_depth} queued launches")
+    ds = Datastore(cfg_a)
+    companies = {"a": ObjectId(), "b": ObjectId()}
+    rng = np.random.default_rng(12)
+    runs = {}
+    for label, name in (("a", "rgb + heads (run a)"), ("b", "yuv420 K4 (run b)")):
+        faces = {}  # a face's embedding bytes -> embedding: one person each
+        for rows in tables[name].values():
+            for _, embs in rows:
+                for e in embs:
+                    faces.setdefault(e.tobytes(), e)
+        vecs = np.stack(list(faces.values()))
+        dis = rng.normal(size=(max(persons // 2 - len(vecs), 0), 512)).astype(np.float32)
+        matrix = np.concatenate([vecs, dis / np.linalg.norm(dis, axis=1, keepdims=True)])
+        ids = write_people(ds, companies[label], matrix.astype(np.float32), f"S{label.upper()}")
+        runs[label] = {"table": tables[name], "own": dict(zip(faces, ids)), "ids": ids,
+                       "matrix": matrix.astype(np.float64)}
+    total = sum(len(r["ids"]) for r in runs.values())
+    say(f"[server] {card} | {total} employees in two companies, holding run a's "
+        f"{len(runs['a']['own'])} and run b's {len(runs['b']['own'])} distinct faces of "
+        f"request 1 over the buckets {SERVER_BUCKETS}; enrolled and warmed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    restore_camera = install_camera(frames)
+    records = []
+    try:
+        for label, cfg, face_app in (("a", cfg_a, None), ("b", cfg_b, app_b)):
+            records.append(_server_run(torch, card, dev, label, cfg, face_app, ds,
+                                       str(companies[label]), runs[label], total))
+    finally:
+        restore_camera()
+        core_config.set_config(previous)
+    records[0]["batch_witness"] = witness
+    return records
+
+
+def thread_cpu_s(threads) -> float:
+    """The CPU seconds (user + system) ``threads`` have used, from
+    /proc/self/task/<tid>/stat; a thread that has ended counts 0."""
+    total = 0.0
+    for t in threads:
+        try:
+            with open(f"/proc/self/task/{t.native_id}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            total += (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+        except (OSError, TypeError, IndexError, ValueError):
+            pass
+    return total
+
+
+def _server_run(torch, card, dev, label, cfg, face_app, ds, company, run, persons) -> dict:
+    """One run of the server phase (see server_phase) -> its record."""
+    from facerecognition_infrenceengine_tpu_torch.core import config as core_config
+    from facerecognition_infrenceengine_tpu_torch.core import metrics
+    from facerecognition_infrenceengine_tpu_torch.domain.cameras import CameraManager
+    from facerecognition_infrenceengine_tpu_torch.engine import microbatch, recognizer
+    from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine, bucket
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis
+    from facerecognition_infrenceengine_tpu_torch.ops import match_kernel, stem_kernel, warp_kernel
+    from facerecognition_infrenceengine_tpu_torch.servers.inference_server import build_app
+    from facerecognition_infrenceengine_tpu_torch.web import serve
+
+    core_config.set_config(cfg)
+    metrics.reset()
+    gallery = GalleryManager(ds, cfg, sync_interval_s=cfg.sync.inference_sync_s)
+    gallery.start_sync()
+    window = threading.Event()
+    rec = {"dispatch": [], "match": [], "latency": [], "errors": [], "yuv_on_card": [],
+           "encode": [], "stall": []}
+    stall = threading.Event()  # after the window: the card held up once (run b)
+    decisions = []
+
+    def on_result(source, frame, results):
+        if window.is_set():
+            decisions.append((ReplayCapture.frame_index(frame), results))
+
+    cm = CameraManager(gallery, face_app=face_app, on_result=on_result)
+
+    # measurement hooks around the path's own calls, removed after the run:
+    # the kernel launches of each dispatch (only the dispatch thread launches
+    # K3 and K4) and of each match (only the results thread launches K1 and
+    # K2), the batches in flight around each dispatch, each frame's
+    # submit -> resolve latency, the device of each stacked yuv batch, the
+    # bucket each frame's batch was padded to (on its faces) and each
+    # encode_frame on the capture threads
+    orig = (FaceAnalysis.get_batch_async, recognizer.FaceRecognitionProcessor.match_faces,
+            microbatch.MicroBatcher.submit, FaceEngine.detect_align_embed_yuv420_flat,
+            FaceAnalysis.encode_frame)
+
+    def get_batch_async(self, frames_, max_num=0):
+        inside, mb = window.is_set(), cm.batcher
+        k3, k4 = Counter(warp_kernel.warp_rois.launches_by_size), stem_kernel.fused_stem.launches
+        before = mb._inflight_n if mb is not None else 0
+        t0 = time.perf_counter()
+        resolve = orig[0](self, frames_, max_num)
+        took = time.perf_counter() - t0
+        stalled = stall.is_set() and not rec["stall"]
+        if stalled:
+            # the card, held up ~0.2 s behind this batch, is the slower side
+            torch.cuda._sleep(400_000_000)
+        running = False  # the batch still on the card as its dispatch returns
+        if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+            running = not done.query()
+        if inside and window.is_set():
+            rec["dispatch"].append((len(frames_), before, running,
+                                    dict(Counter(warp_kernel.warp_rois.launches_by_size) - k3),
+                                    stem_kernel.fused_stem.launches - k4, took))
+        if stall.is_set():
+            rec["stall"].append((len(frames_), before, running, stalled))
+
+        def resolve_tagged():
+            per_frame = resolve()
+            for faces in per_frame:
+                for f in faces:
+                    f.batch_bucket = bucket(len(frames_))
+            return per_frame
+
+        return resolve_tagged
+
+    def match_faces(self, frame, faces, company_id, draw=True):
+        inside = window.is_set()
+        k1, k2 = match_kernel.gallery_top1.launches, match_kernel.gallery_top1_int8.launches
+        t0 = time.perf_counter()
+        out = orig[1](self, frame, faces, company_id, draw=draw)
+        took = time.perf_counter() - t0
+        if inside and window.is_set():
+            rec["match"].append((ReplayCapture.frame_index(frame),
+                                 np.stack([f.normed_embedding for f in faces]) if faces else None,
+                                 out[1], match_kernel.gallery_top1.launches - k1,
+                                 match_kernel.gallery_top1_int8.launches - k2, took,
+                                 getattr(faces[0], "batch_bucket", None) if faces else None,
+                                 np.stack([f.bbox for f in faces]) if faces else None))
+        return out
+
+    def submit(self, source, frame, prepare=None):
+        fut = orig[2](self, source, frame, prepare=prepare)
+
+        def done(f):
+            if getattr(f, "dropped", False):
+                return
+            if f.exception() is not None:
+                rec["errors"].append(repr(f.exception()))
+            elif window.is_set():
+                rec["latency"].append(time.perf_counter() - f._t_submit)
+
+        fut.add_done_callback(done)
+        return fut
+
+    def yuv420_flat(self, frames_y24_u8, det_threshold=0.3):
+        rec["yuv_on_card"].append(isinstance(frames_y24_u8, torch.Tensor)
+                                  and frames_y24_u8.device.type == dev.type)
+        return orig[3](self, frames_y24_u8, det_threshold)
+
+    def encode_frame(self, frame_bgr):
+        t0 = time.perf_counter()
+        out = orig[4](self, frame_bgr)
+        if window.is_set():
+            rec["encode"].append(time.perf_counter() - t0)
+        return out
+
+    (FaceAnalysis.get_batch_async, recognizer.FaceRecognitionProcessor.match_faces,
+     microbatch.MicroBatcher.submit, FaceEngine.detect_align_embed_yuv420_flat,
+     FaceAnalysis.encode_frame) = (get_batch_async, match_faces, submit, yuv420_flat,
+                                   encode_frame)
+    port = free_port()
+    server = serve(build_app(gallery, cm), "127.0.0.1", port, background=True)
+    base = f"http://127.0.0.1:{port}"
+    trace_dir = tempfile.mkdtemp(prefix="fre_trace_")
+    tag = f"[server {label}]"
+    try:
+        st, body = http_json("POST", base + "/api/camera/start", {"sources": [0]})
+        check(st == 400 and body["status"] == "error", f"{tag} start without company: {st}")
+        st, stats = http_json("GET", base + "/api/embeddings/stats")
+        check(st == 200 and stats["total_embeddings"] == persons
+              and stats["initial_load_complete"] is True, f"{tag} stats {st} {stats}")
+        st, body = http_json("POST", base + "/api/embeddings/sync", {})
+        check(st == 200 and body["status"] == "success", f"{tag} sync {st} {body}")
+        t0 = time.perf_counter()
+        st, body = http_json("POST", base + "/api/camera/start",
+                             {"sources": [f"cam{i}" for i in range(SERVER_CAMERAS)],
+                              "company_id": company})
+        start_s = time.perf_counter() - t0
+        check(st == 200 and body["status"] == "success", f"{tag} camera start {st} {body}")
+        deadline = time.time() + 120
+        while cm.stats["results"] == 0 and time.time() < deadline:
+            time.sleep(0.05)
+        check(cm.stats["results"] > 0, f"{tag} no result within 120 s: {cm.stats}")
+        first_result_s = time.perf_counter() - t0
+        time.sleep(SERVER_WARMUP_S)
+        mb = cm.batcher
+
+        def counts():
+            return (ReplayCapture.offered, cm.stats["frames_captured"], mb.stats["frames"],
+                    mb.stats["dispatches"], mb.stats["dropped"], cm.stats["results"],
+                    cm.stats["results_dropped"])
+
+        # the host: each role's threads' CPU seconds over the window
+        roles = {"capture": list(cm.threads), "dispatch": [mb._thread],
+                 "resolver": [t for t in threading.enumerate() if "_resolver_loop" in t.name],
+                 "results": [cm._results_thread]}
+        cpu0 = {r: thread_cpu_s(ts) for r, ts in roles.items()}
+        proc0 = time.process_time()
+        warp_kernel.warp_rois.launches = 0
+        warp_kernel.warp_rois.launches_by_size.clear()
+        stem_kernel.fused_stem.launches = 0
+        match_kernel.gallery_top1.launches = 0
+        match_kernel.gallery_top1_int8.launches = 0
+        c0 = counts()
+        window.set()
+        tw = time.perf_counter()
+        time.sleep(SERVER_WINDOW_S)
+        window.clear()
+        # the launches and counts first: a call that begins after the window
+        # closed must not reach them
+        launches = {"warp_rois": dict(warp_kernel.warp_rois.launches_by_size),
+                    "fused_stem": stem_kernel.fused_stem.launches,
+                    "gallery_top1": match_kernel.gallery_top1.launches,
+                    "gallery_top1_int8": match_kernel.gallery_top1_int8.launches}
+        offered, captured, dispatched, dispatches, dropped, results, results_dropped = (
+            b - a for a, b in zip(c0, counts()))
+        dt = time.perf_counter() - tw
+        cores = {r: (thread_cpu_s(ts) - cpu0[r]) / dt for r, ts in roles.items()}
+        cores["process"] = (time.process_time() - proc0) / dt
+        if dev.type == "cuda" and label == "b":
+            # the pipeline with the card as the slower side: one dispatch
+            # holds the card up, and the next must begin before the batch
+            # it dispatched is resolved
+            stall.set()
+            time.sleep(1.5)
+            stall.clear()
+        st1, b1 = http_json("POST", base + "/api/profiler/start", {"logdir": trace_dir})
+        time.sleep(1.0)
+        st2, b2 = http_json("POST", base + "/api/profiler/stop", {})
+        check(st1 == 200 and st2 == 200 and b2.get("logdir") == trace_dir,
+              f"{tag} profiler over HTTP: {st1} {b1} {st2} {b2}")
+        traced, busy_share = trace_kernels(trace_dir)
+        host_calls = trace_host(trace_dir, roles)
+        st, snap = http_json("GET", base + "/api/metrics")
+        check(st == 200 and snap["counters"].get("microbatch.frames", 0) >= cm.stats["results"]
+              and snap["timers"].get("microbatch.dispatch", {}).get("count", 0) > 0,
+              f"{tag} /api/metrics: {st} {snap.get('counters')}")
+        threads = list(cm.threads) + [cm._results_thread, mb._thread] + [
+            t for t in threading.enumerate() if "_resolver_loop" in t.name]
+        t0 = time.perf_counter()
+        st, body = http_json("POST", base + "/api/camera/stop", {})
+        while any(t.is_alive() for t in threads) and time.perf_counter() - t0 < 10:
+            time.sleep(0.02)
+        stop_s = time.perf_counter() - t0
+        alive = [t.name for t in threads if t.is_alive()]
+        check(st == 200 and body["status"] == "success" and not alive,
+              f"{tag} camera stop {st} {body}, threads alive after 10 s: {alive}")
+        captured_all, dispatched_all = cm.stats["frames_captured"], mb.stats["frames"]
+        adapt_log = [list(x) for x in mb.adapt_log]
+        # the same calls with the server's threads stopped: one batch of the
+        # 8 frames (dispatch, then resolve) and match_faces with the HUD
+        frames = ReplayCapture.frames
+        alone_batch, alone_match = [], []
+
+        def batch8():
+            return cm.face_app.get_batch_async([
+                cm.face_app.encode_frame(f) if cfg.engine.stream_transport != "rgb" else f
+                for f in frames])()
+
+        for _ in range(3):
+            t0 = time.perf_counter()
+            faces = batch8()
+            alone_batch.append((time.perf_counter() - t0) * 1e3)
+        # the same batch's CUDA calls, traced on this thread alone
+        alone_dir = tempfile.mkdtemp(prefix="fre_alone_")
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
+                                        + ([torch.profiler.ProfilerActivity.CUDA]
+                                           if dev.type == "cuda" else [])) as prof:
+                batch8()
+            prof.export_chrome_trace(os.path.join(alone_dir, "alone.json"))
+            alone_calls = trace_host(alone_dir, {"alone": [threading.current_thread()]}).get(
+                "alone", {})
+        finally:
+            shutil.rmtree(alone_dir, ignore_errors=True)
+        for f, fl in zip(frames, faces):
+            t0 = time.perf_counter()
+            cm.processor.match_faces(f.copy(), fl, company, draw=True)
+            alone_match.append((time.perf_counter() - t0) * 1e3)
+        # encode_frame alone (run b): with the upload, and without it
+        alone_encode = {}
+        if cfg.engine.stream_transport != "rgb":
+            app, cfg0 = cm.face_app, cm.face_app.cfg
+            for upload in (True, False):
+                app.cfg = dataclasses.replace(cfg0, upload_on_submit=upload)
+                t_ = []
+                for f in frames * 3:
+                    t0 = time.perf_counter()
+                    app.encode_frame(f)
+                    t_.append((time.perf_counter() - t0) * 1e3)
+                alone_encode["upload" if upload else "host"] = float(np.median(t_))
+            app.cfg = cfg0
+    finally:
+        (FaceAnalysis.get_batch_async, recognizer.FaceRecognitionProcessor.match_faces,
+         microbatch.MicroBatcher.submit, FaceEngine.detect_align_embed_yuv420_flat,
+         FaceAnalysis.encode_frame) = orig
+        server.shutdown()
+        server.server_close()
+        gallery.stop_sync()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+
+    lat = sorted(rec["latency"])
+    disp = rec["dispatch"]
+    check(lat and disp, f"{tag} {len(lat)} frames resolved, {len(disp)} dispatches recorded "
+          f"in the window")
+    busy_call = {"dispatch": sum(d[5] for d in disp) / dt,
+                 "results": sum(m[5] for m in rec["match"]) / dt,
+                 "capture_encode": sum(rec["encode"]) / dt}
+    out = {"run": label, "card": card, "cameras": SERVER_CAMERAS, "fps_per_camera": SERVER_FPS,
+           "window_s": dt, "offered": offered, "captured": captured, "dispatched": dispatched,
+           "dispatches": dispatches, "avg_batch": dispatched / max(1, dispatches),
+           "max_batch": max(d[0] for d in disp), "drop_share": 1 - dispatched / max(1, captured),
+           "batcher_dropped": dropped, "resolved": len(lat), "resolved_fps": len(lat) / dt,
+           "p50_ms": lat[len(lat) // 2] * 1e3, "p90_ms": lat[int(len(lat) * 0.9)] * 1e3,
+           "results": results, "results_dropped": results_dropped,
+           "launches": launches, "traced_kernels": dict(traced), "camera_start_s": start_s,
+           "first_result_s": first_result_s, "stop_s": stop_s,
+           "captured_total": captured_all, "dispatched_total": dispatched_all,
+           "dispatch_call_ms_p50": float(np.median([d[5] for d in disp])) * 1e3,
+           "match_call_ms_p50": float(np.median([m[5] for m in rec["match"]] or [0])) * 1e3,
+           "resolve_ms_p50": snap["timers"].get("microbatch.resolve", {}).get("p50_ms"),
+           "dispatch_loop_ms_p50": snap["timers"].get("microbatch.dispatch", {}).get("p50_ms"),
+           "device_busy_share_traced": busy_share,
+           "alone_batch8_ms": alone_batch, "alone_match_ms_p50": float(np.median(alone_match)),
+           "thread_cores": cores, "in_call_share": busy_call, "traced_cuda_calls": host_calls,
+           "alone_batch8_cuda_calls": alone_calls,
+           "encode_ms_p50": float(np.median(rec["encode"])) * 1e3 if rec["encode"] else None,
+           "encode_ms_p90": (float(np.percentile(rec["encode"], 90)) * 1e3
+                             if rec["encode"] else None),
+           "alone_encode_ms_p50": alone_encode}
+    if label == "b":
+        out["adapt_log"] = adapt_log
+    say(f"{tag} {card} | {SERVER_CAMERAS} cameras x {SERVER_FPS:.0f} fps over {dt:.2f} s: "
+        f"offered {offered}, captured {captured}, dispatched {dispatched} in {dispatches} "
+        f"batches (avg {out['avg_batch']:.2f}, max {out['max_batch']}), drop share "
+        f"{out['drop_share']:.3f}; resolved {out['resolved_fps']:.1f} frames/s, submit->resolve "
+        f"p50 {out['p50_ms']:.1f} ms p90 {out['p90_ms']:.1f} ms; results stage dropped "
+        f"{results_dropped}; host p50 ms: get_batch_async {out['dispatch_call_ms_p50']:.1f}, "
+        f"resolve {out['resolve_ms_p50'] or 0:.1f}, match_faces a frame "
+        f"{out['match_call_ms_p50']:.1f} (alone: a batch of 8 "
+        f"{[round(t, 1) for t in alone_batch]}, match_faces {out['alone_match_ms_p50']:.1f}); "
+        f"device busy {100 * busy_share:.1f}% of the traced second; launches {launches}; "
+        f"camera start {start_s:.1f} s "
+        f"(first result {first_result_s:.1f} s), stop {stop_s:.2f} s")
+    # the host over the window: each role's CPU (cores) beside the share of
+    # the window its thread spent inside its call; off a core inside a call
+    # while the card idles is waiting: for the interpreter lock, or for the
+    # card's queue where a call synchronizes
+    say(f"{tag} {card} | host over the window: process {cores['process']:.2f} cores; dispatch "
+        f"thread inside get_batch_async {100 * busy_call['dispatch']:.0f}% of the window, on a "
+        f"core {100 * cores['dispatch']:.0f}%; results thread inside match_faces "
+        f"{100 * busy_call['results']:.0f}%, on a core {100 * cores['results']:.0f}%; resolver "
+        f"on a core {100 * cores['resolver']:.0f}%; {len(roles['capture'])} capture threads on a "
+        f"core {100 * cores['capture']:.0f}% together"
+        + (f", inside encode_frame {100 * busy_call['capture_encode']:.0f}% together: "
+           f"encode_frame p50 {out['encode_ms_p50']:.3f} ms p90 {out['encode_ms_p90']:.3f} ms "
+           f"(alone: {alone_encode['upload']:.3f} ms with the upload, "
+           f"{alone_encode['host']:.3f} ms without)" if rec["encode"] else ""))
+    say(f"{tag} {card} | CUDA calls in the traced second, by thread: "
+        + "; ".join(f"{role}: {host_line(c)}" for role, c in sorted(
+            host_calls.items(), key=lambda rc: -sum(ms for _, ms in rc[1].values()))[:6])
+        + f"; alone, a batch of 8: {host_line(alone_calls)}")
+
+    # decisions: a frame's faces depend on the bucket its batch was padded
+    # to (batch_witness), so each resolved frame is held against its own
+    # bucket's faces: each box within 1 px of its own face's, and each face
+    # decided as its own enrolled id, which a float64 match on the host must
+    # also find (its top-1 within 1e-5); no id for two distinct faces
+    thresh = cfg.thresholds.recognition
+    check(not rec["errors"], f"{tag} futures ended in exceptions: {rec['errors'][:3]}")
+    # a frame matched as the window opens or closes reaches one list only
+    check(decisions and abs(len(decisions) - len(rec["match"])) <= 2,
+          f"{tag} {len(decisions)} results, {len(rec['match'])} matches in the window")
+    table, own_id, ids = run["table"], run["own"], run["ids"]
+    row_of = {pid: i for i, pid in enumerate(ids)}
+    gal64 = run["matrix"] / np.linalg.norm(run["matrix"], axis=1, keepdims=True)
+    n_faces, under_margin, near_dup, not_own, box_px, emb_gap, int8_gap = 0, 0, 0, 0, 0.0, 0.0, 0.0
+    by_bucket = Counter()
+    if label == "b":
+        snap = gallery.snapshot(company)
+    for k, embs, rows, _, _, _, b, boxes in rec["match"]:
+        check(embs is not None and b in table, f"{tag} frame {k}: no face, or no bucket ({b})")
+        want_boxes, want_embs = table[b][k]
+        check(len(rows) == len(embs) == len(want_embs),
+              f"{tag} frame {k} in bucket {b}: {len(embs)} faces, {len(want_embs)} expected")
+        by_bucket[b] += 1
+        box_px = max(box_px, float(np.abs(boxes - want_boxes).max()))
+        q = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+        emb_gap = max(emb_gap, float(1.0 - (q * want_embs).sum(1).min()))
+        check(box_px <= 1.0 and emb_gap <= 1e-5, f"{tag} frame {k} in bucket {b}: boxes "
+              f"{box_px:.3f} px and 1 - cos {emb_gap:.2e} from the bucket's faces")
+        s64 = q.astype(np.float64) @ gal64.T
+        pairs = []
+        for j, row in enumerate(rows):
+            own = own_id[want_embs[j].tobytes()]
+            top = s64[j].max()
+            near = {ids[i] for i in np.flatnonzero(s64[j] >= top - 1e-5)}
+            near_dup += len(near) > 1
+            check(own in near and row["recognized"],
+                  f"{tag} frame {k}: face {j}'s own id {own} scores {s64[j, row_of[own]]:.6f} "
+                  f"on the host, the top-1 {top:.6f}; recognized {row['recognized']}")
+            if label == "a":
+                # K1 (f32) may order ids within 1e-5 of the top either way
+                check(row["person_id"] in near and row["similarity"] >= 0.99,
+                      f"{tag} frame {k}: face {j} took {row['person_id']} at "
+                      f"{row['similarity']:.4f}, want its own {own} (or one within 1e-5)")
+                if len(near) == 1:
+                    pairs.append((own, row["person_id"]))
+            else:
+                # int8 may flip ids whose float64 scores lie within the
+                # margin of the top-1 (the yuv phase's rule), no further: where
+                # the top-1 leads by more, K2 gives the face's own id
+                gap = top - s64[j, row_of[row["person_id"]]] if row["recognized"] else 1.0
+                int8_gap = max(int8_gap, float(gap))
+                check(gap <= INT8_MARGIN, f"{tag} frame {k}: face {j} took "
+                      f"{row['person_id']} through K2, {gap:.2e} under its own {own} on the host")
+                if top - np.partition(s64[j], -2)[-2] > INT8_MARGIN:
+                    check(row["person_id"] == own, f"{tag} frame {k}: face {j} took "
+                          f"{row['person_id']} through K2, want its own {own} (lead > margin)")
+                    pairs.append((own, row["person_id"]))
+                else:
+                    under_margin += 1
+                    not_own += row["person_id"] != own
+        check(len({d for _, d in pairs}) == len({o for o, _ in pairs}),
+              f"{tag} frame {k}: one id for two distinct faces: {pairs}")
+        if label == "b":
+            qd = torch.from_numpy(np.concatenate(
+                [q, np.zeros((bucket(len(q)) - len(q), 512), np.float32)])).to(dev)
+            pv, pi = match_kernel.gallery_top1_int8_plain(qd, snap.device_matrix,
+                                                          snap.int8_scale, snap.size)
+            for row, v, i in zip(rows, pv.cpu().numpy(), pi.cpu().numpy()):
+                want = snap.ids[i] if v >= thresh else None
+                check(row["similarity"] == float(v) and row["person_id"] == want,
+                      f"{tag} K2 on the path {row['person_id']} {row['similarity']} vs plain "
+                      f"{want} {float(v)}")
+        n_faces += len(rows)
+
+    # launches: each call's own, and the window's counts
+    k3_want = {112: 1, 96: 1, 192: 1} if label == "a" else {112: 1}
+    k4_want = 0 if label == "a" else 1
+    match_want = (1, 0) if label == "a" else (0, 1)
+    matched = [m for m in rec["match"] if m[1] is not None]
+    check(disp and all(d[3] == k3_want and d[4] == k4_want for d in disp),
+          f"{tag} a dispatch must launch K3 {k3_want} and K4 {k4_want}: "
+          f"{[d[3:5] for d in disp if d[3] != k3_want or d[4] != k4_want][:3]}")
+    check(matched and all(m[3:5] == match_want for m in matched),
+          f"{tag} a matched frame must launch (K1, K2) {match_want}")
+    by_size = launches["warp_rois"]
+    k1_window = launches["gallery_top1" if label == "a" else "gallery_top1_int8"]
+    # calls that straddle the window's ends launch inside it but are not
+    # recorded: at most one a thread at each end
+    check(all(len(disp) <= by_size.get(size, 0) <= len(disp) + 2 for size in k3_want)
+          and set(by_size) == set(k3_want)
+          and len(disp) * k4_want <= launches["fused_stem"] <= (len(disp) + 2) * k4_want
+          and len(matched) <= k1_window <= len(matched) + 2
+          and launches["gallery_top1" if label == "b" else "gallery_top1_int8"] == 0,
+          f"{tag} the window's launches {launches} against {len(disp)} dispatches and "
+          f"{len(matched)} matched frames")
+    want_traced = (("warp_windows_kernel", "top1_f32_kernel") if label == "a"
+                   else ("fused_stem", "warp_windows_kernel", "top1_int8_kernel"))
+    hits = {w: sum(n for name, n in traced.items() if w in name) for w in want_traced}
+    check(all(hits.values()), f"{tag} the HTTP-controlled trace lacks device events: {hits} "
+          f"(traced: {dict(traced.most_common(8))})")
+
+    # batching
+    check(max(d[0] for d in disp) > 1, f"{tag} no dispatch held more than one frame")
+    check(captured_all > dispatched_all, f"{tag} captured {captured_all} <= dispatched "
+          f"{dispatched_all}: the capture did not run free")
+    # in the window: dispatches that began while the batch before was
+    # unresolved, and of those the ones whose batch before still ran on the
+    # card as its dispatch returned (timing: the host is the slower side
+    # here); with the card held up once after the window, the next dispatch
+    # must begin while the held batch is still unresolved
+    unresolved = sum(1 for nxt in disp[1:] if nxt[1] >= 1)
+    overlapped = sum(1 for d, nxt in zip(disp, disp[1:]) if d[2] and nxt[1] >= 1)
+    if label == "b" and dev.type == "cuda":
+        held = rec["stall"]
+        check(len(held) >= 2 and held[0][3] and held[0][2] and held[1][1] >= 1,
+              f"{tag} with the card held up, the next batch was not dispatched while the held "
+              f"one was unresolved: (frames, unresolved before, on the card, held) {held[:3]}")
+        check(rec["yuv_on_card"] and all(rec["yuv_on_card"]),
+              f"{tag} a stacked yuv batch reached the engine off the card: {rec['yuv_on_card']}")
+    out.update(faces_decided=n_faces, max_box_shift_px=box_px, max_embedding_gap=emb_gap,
+               frames_by_bucket=dict(by_bucket), near_duplicate_faces=near_dup,
+               under_int8_margin=under_margin, int8_not_own=not_own,
+               int8_max_gap=int8_gap, dispatches_unresolved_before=unresolved,
+               dispatches_overlapping=overlapped,
+               traced_kernels=hits)
+    margin = (f"; K2 equal to the plain int8 match on every face, its id within "
+              f"{int8_gap:.2e} of the host's top-1 score; {under_margin} faces whose top-1 "
+              f"leads by less than {INT8_MARGIN} ({not_own} of them took another id there)"
+              if label == "b" else "")
+    say(f"{tag} {card} | {n_faces} faces of {len(rec['match'])} frames (by bucket "
+        f"{dict(sorted(by_bucket.items()))}): each face's own enrolled id is the host's "
+        f"float64 top-1 (within 1e-5; {near_dup} faces with another id that close)"
+        + (", and K1 decided it at >= 0.99" if label == "a" else "")
+        + f"; no id for two distinct faces; boxes within {box_px:.3f} px and 1 - cos {emb_gap:.2e} of their "
+        f"bucket's faces{margin}; trace {hits}; {unresolved}/{len(disp) - 1} dispatches while "
+        f"the batch before was unresolved, {overlapped} of them while it still ran on the card"
+        + (f"; card held up: {rec['stall'][:3]}" if rec["stall"] else "")
+        + (f"; adapt_log (t, p50 ms, fps, depth, inflight) {adapt_log}" if label == "b" else ""))
+    return out
+
+
+def entry_point_check(card: str) -> dict:
+    """``python -m ...servers.inference_server`` in a subprocess on a memory://
+    store: it answers /api/embeddings/stats, and exits 0 on SIGTERM."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    env = dict(os.environ, MONGODB_URI="memory://",
+               PYTHONPATH=os.pathsep.join([root] + [p for p in [os.environ.get("PYTHONPATH")]
+                                                    if p]))
+    workdir = tempfile.mkdtemp(prefix="fre_server_")  # the server's log file lands here
+    t0 = time.perf_counter()
+    with open(os.path.join(workdir, "stdout.txt"), "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "facerecognition_infrenceengine_tpu_torch.servers."
+             "inference_server", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=workdir, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            deadline = time.time() + 180
+            while True:
+                try:
+                    st, stats = http_json("GET", f"http://127.0.0.1:{port}/api/embeddings/stats",
+                                          timeout=5)
+                    break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    check(proc.poll() is None and time.time() < deadline,
+                          f"the entry point did not answer (exit {proc.poll()})")
+                    time.sleep(0.2)
+            up_s = time.perf_counter() - t0
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(os.path.join(workdir, "stdout.txt")) as f:
+        tail = f.read()[-2000:]
+    shutil.rmtree(workdir, ignore_errors=True)
+    check(st == 200 and stats["total_embeddings"] == 0 and rc == 0,
+          f"the entry point: stats {st} {stats}, exit {rc}: {tail}")
+    say(f"[server] {card} | python -m ...servers.inference_server answered "
+        f"/api/embeddings/stats {up_s:.1f} s after its start and exited 0 on SIGTERM")
+    return {"answered_after_s": up_s, "exit_code": rc}
 
 
 def main() -> int:
@@ -1097,24 +2095,6 @@ def main() -> int:
     # an f32 (K1) and an int8 (K2) GalleryManager; then the delta sync on a
     # second store of 2,000 (the audit is quadratic in the gallery: a 50,000
     # store would take minutes a sync)
-    def write_people(ds, company, vecs, prefix):
-        """Employees as registration + the enrollment worker leave them, in
-        bulk -> their ids (hex)."""
-        docs = []
-        for n, v in enumerate(vecs):
-            pid = ObjectId()
-            fid = ds.employee_embeddings.put(serialize_embedding(v),
-                                             filename=f"{company}_{pid}_buffalo_l.pkl")
-            now = get_current_utc()
-            docs.append({"_id": pid, "companyId": company, "employeeId": f"{prefix}{n:05d}",
-                         "employeeName": f"{prefix}{n:05d}", "status": "active",
-                         "blacklisted": False, "lastUpdated": now,
-                         "employeeEmbeddings": {"buffalo_l": {
-                             "embeddingId": fid, "status": "done", "createdAt": now,
-                             "finishedAt": now, "corrupt": False}}})
-        ds.employee_info.insert_many(docs)
-        return [str(d["_id"]) for d in docs]
-
     gcfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
                   engine=EngineConfig(det_size=(CANVAS, CANVAS)))
     g8cfg = Config(thresholds=gcfg.thresholds,
@@ -1823,6 +2803,19 @@ def main() -> int:
         f"{rgb_dev_ms:.3f} ms)")
     say(f"[onnx] {card} | attributes on {len(o_faces)} faces, device {o_dev_ms:.3f} ms a call "
         f"(exact graphs, float32) against {s_dev_ms:.3f} ms (the synthetic heads, bf16)")
+
+    # ---------------------------------------------------------- server path
+    # the live server, run a as the reference ships it (Config() defaults),
+    # run b on the streaming profile; then the entry point in a subprocess.
+    # Last of the phases: its traces are started and stopped by the control
+    # API's trace thread, and a trace taken before the kernels' own traces
+    # has been seen to leave them empty (the K2 one-kernel check)
+    server_runs = server_phase(
+        torch, card, requests[0], Config(),
+        Config(engine=EngineConfig(stream_transport="yuv420", upload_on_submit=True,
+                                   packed_stem_impl="pallas", gallery_dtype="int8",
+                                   stream_profile="auto")))
+    entry = entry_point_check(card)
     say(json.dumps({"variants": variants}))
     say(json.dumps({"path": {"card": card, "requests": REQUESTS, "frames_per_request": FRAMES,
                              "request_ms": request_ms, "faces_per_request": faces_per_request,
@@ -1858,6 +2851,8 @@ def main() -> int:
                                                               for n, v in t.items()},
                                      "delta_store_persons": DELTA_ROWS,
                                      "force_sync_ms": sync_ms, "launches": g_launches}}))
+    for run in server_runs:
+        say(json.dumps({"server_path": dict(run, entry_point=entry)}))
     for key, t in k3.items():
         say(f"[times] {card} | K3 {'packed 112' if key == 'packed' else key} on the atlas: "
             f"{t['ms']:.4f} ms, device {t['kernel_device_ms']:.4f} (the direct read; staged "

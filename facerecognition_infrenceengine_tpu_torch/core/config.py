@@ -78,10 +78,9 @@ class ThresholdConfig:
 
 @dataclass
 class EngineConfig:
-    """Pipeline shapes and dtypes: the reference's serving fields, with its
-    defaults.  The micro-batching and streaming fields (ROADMAP Queue 1
-    item 6) and the int8 / packed-stem scale modes (item 8) come with the
-    modules that read them."""
+    """Pipeline shapes and dtypes, micro-batching and streaming: the
+    reference's serving fields, with its defaults.  The int8 / packed-stem
+    scale modes come with the modules that read them."""
 
     # Detector input canvas (static shape of every detect program).
     det_size: tuple = (640, 640)
@@ -94,6 +93,32 @@ class EngineConfig:
     embed_size: int = 112
     # Compute dtype of the detector and embedder: "bfloat16" | "float32".
     dtype: str = "bfloat16"
+    # Micro-batching: max frames per dispatch and max wait to fill a batch.
+    microbatch_max: int = 8
+    microbatch_window_ms: float = 4.0
+    # Frame-queue depth per camera before dropping (infrenceServer.py:629).
+    frame_queue_depth: int = 2
+    # Batches in flight beyond the one being dispatched (engine/microbatch.py):
+    # 1 = double-buffering (batch k+1 is prepared and uploaded while batch k
+    # runs and resolves); 2 adds a pipeline stage, at the cost of one more
+    # batch cycle of latency.
+    inflight_batches: int = 1
+    # Upload each yuv420 frame to the device from its capture thread (inside
+    # MicroBatcher.submit's prepare hook) instead of as one stacked batch on
+    # the dispatch thread; the batch is then stacked on the device.
+    # Admission control applies: a frame is uploaded only if its camera's
+    # slot has room.
+    upload_on_submit: bool = False
+    # Adaptive streaming.  With stream_profile="auto" the MicroBatcher
+    # measures each frame's submit->resolve latency and retunes
+    # frame_queue_depth / inflight_batches every adapt_interval_s: it
+    # tightens one knob when the window's p50 overshoots target_p50_ms, and
+    # when p50 sits well under target while frames are dropped it loosens
+    # one knob as a trial, kept only if resolved frames/s rose.  Drop-on-full
+    # admission (reference infrenceServer.py:594-598) holds at every depth.
+    stream_profile: str = "static"  # "static" | "auto"
+    target_p50_ms: float = 300.0
+    adapt_interval_s: float = 2.0
     # Gallery capacity grows by doubling from this block.
     gallery_block: int = 1024
     embed_dim: int = 512
@@ -120,7 +145,7 @@ class EngineConfig:
         if self.packed_stem_impl == "xla":
             raise NotImplementedError(
                 'packed_stem_impl="xla" (the packed stem as plain convs) is '
-                "ROADMAP Queue 1 item 8; use \"unpack\" or \"pallas\"")
+                "ROADMAP Queue 1 item 4; use \"unpack\" or \"pallas\"")
         if self.packed_stem_impl not in ("unpack", "pallas"):
             raise ValueError(f"packed_stem_impl {self.packed_stem_impl!r}")
         if self.stem_kernel not in ("on", "off", "auto"):

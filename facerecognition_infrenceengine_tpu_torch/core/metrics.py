@@ -161,43 +161,67 @@ def reset() -> None:
 
 
 # ----------------------------------------------------------- torch.profiler
+# torch.profiler must be started and stopped on one thread (stopping it from
+# another one crashes the process), while the control API starts and stops a
+# trace from whichever request threads serve /api/profiler/start and /stop:
+# every profiler call runs on one worker thread of this module.  The trace
+# holds the device's kernels whichever thread launches them.
 _trace_lock = threading.Lock()
 _trace_dir = None
 _trace_prof = None
+_tracer = None
 
 
-def start_device_trace(logdir: str) -> bool:
-    """Begin a torch.profiler trace of the host and, where a card is present,
-    its device.  False if one is active."""
+def _on_trace_thread(fn, *args):
+    global _tracer
+    from concurrent.futures import ThreadPoolExecutor
+
+    with _trace_lock:
+        if _tracer is None:
+            _tracer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="fre-trace")
+        tracer = _tracer
+    return tracer.submit(fn, *args).result()
+
+
+def _start(logdir: str) -> bool:
     global _trace_dir, _trace_prof
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with _trace_lock:
-        if _trace_dir is not None:
-            return False
-        activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            activities.append(ProfilerActivity.CUDA)
-        prof = profile(activities=activities)
-        prof.start()
-        _trace_dir, _trace_prof = logdir, prof
-        return True
+    if _trace_dir is not None:
+        return False
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    _trace_dir, _trace_prof = logdir, prof
+    return True
+
+
+def _stop() -> str | None:
+    global _trace_dir, _trace_prof
+    import os
+
+    if _trace_dir is None:
+        return None
+    prof, out = _trace_prof, _trace_dir
+    _trace_dir = _trace_prof = None
+    prof.stop()
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        out, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
+    return out
+
+
+def start_device_trace(logdir: str) -> bool:
+    """Begin a torch.profiler trace of the host and, where a card is present,
+    its device.  False if one is active.  Any thread may call it."""
+    return _on_trace_thread(_start, logdir)
 
 
 def stop_device_trace() -> str | None:
     """End the active trace and write it into its logdir as a Chrome trace
-    (``trace_<pid>_<ms>.json``); returns the logdir (None if none active)."""
-    global _trace_dir, _trace_prof
-    import os
-
-    with _trace_lock:
-        if _trace_dir is None:
-            return None
-        prof, out = _trace_prof, _trace_dir
-        _trace_dir = _trace_prof = None
-        prof.stop()
-        os.makedirs(out, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(
-            out, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))
-        return out
+    (``trace_<pid>_<ms>.json``); returns the logdir (None if none active).
+    Any thread may call it, not only the one that started the trace."""
+    return _on_trace_thread(_stop)

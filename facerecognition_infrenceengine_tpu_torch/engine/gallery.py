@@ -276,7 +276,7 @@ class GalleryManager:
         self.device = resolve_device(device)
         if mesh is not None:
             raise NotImplementedError(
-                "a sharded gallery (mesh) is ROADMAP Queue 1 item 9 (multi-GPU)")
+                "a sharded gallery (mesh) is ROADMAP Queue 1 item 5 (multi-GPU)")
         cfg = cfg or get_config()
         self.ds = ds
         self.cfg = cfg

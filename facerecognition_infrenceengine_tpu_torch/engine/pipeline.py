@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from .. import native
-from ..core.config import EngineConfig
+from ..core.config import EngineConfig, get_config
 from ..core.device import resolve_device
 from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, scrfd
 from ..models.layers import cast_keep_bn_f32
@@ -60,6 +60,15 @@ from ..ops.yuv import yuv420p4_to_rgbp4
 # YUV black (Y = 0, U = V = 128) for canvas rows a yuv420 pack does not
 # carry: zero chroma would decode green
 _YUV_BLACK = (0,) * 16 + (128,) * 8
+
+
+def yuv_black(shape: tuple, device) -> torch.Tensor:
+    """A [*shape, 24] uint8 block of YUV black, filled on ``device`` (no
+    host->device copy, which would wait for the device's queue)."""
+    black = torch.full(tuple(shape) + (24,), 128, dtype=torch.uint8, device=device)
+    black[..., :16] = 0
+    return black
+
 
 # rec_arch -> embedder; every one reads arcface.preprocess'd 112x112 crops
 _EMBEDDERS = {"r50": arcface.iresnet50, "r18": arcface.iresnet18,
@@ -119,7 +128,7 @@ class FaceEngine:
 
     def __init__(self, cfg: EngineConfig | None = None, det_variables=None, rec_variables=None,
                  det_arch: str = "det_10g", rec_arch: str = "r50", seed: int = 0, device=None):
-        self.cfg = cfg or EngineConfig()
+        self.cfg = cfg or get_config().engine
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
         if rec_arch not in _EMBEDDERS:
@@ -179,8 +188,7 @@ class FaceEngine:
         scores = torch.sigmoid(logits[..., 0])  # [B, A]
         boxes = distance2bbox(self._centers, bbox * self._strides[None, :, None])
         points = distance2kps(self._centers, kps * self._strides[None, :, None])
-        scores = torch.where(scores >= det_threshold, scores,
-                             torch.tensor(float("-inf"), device=scores.device))
+        scores = scores.masked_fill(~(scores >= det_threshold), float("-inf"))
         # top-k with the lowest index first on ties (lax.top_k's order); the
         # -inf candidates never become valid slots.
         top_s, top_i = torch.sort(scores, dim=1, descending=True, stable=True)
@@ -229,8 +237,8 @@ class FaceEngine:
         dh = self.cfg.det_size[0] // 4
         b, rows, w4, _ = frames_y24.shape
         if rows < dh:
-            black = torch.tensor(_YUV_BLACK, dtype=torch.uint8, device=frames_y24.device)
-            frames_y24 = torch.cat([frames_y24, black.expand(b, dh - rows, w4, 24)], dim=1)
+            frames_y24 = torch.cat([frames_y24, yuv_black((b, dh - rows, w4), frames_y24.device)],
+                                   dim=1)
         return self._fused_packed_impl(yuv420p4_to_rgbp4(frames_y24), det_threshold)
 
     def _ensure_attr_models(self):
@@ -383,6 +391,13 @@ class FaceEngine:
     def detect_align_embed_flat(self, frames_u8, det_threshold: float = 0.3) -> torch.Tensor:
         """Serving variant: one [B, F, 528] device tensor."""
         return self._fused_flat_impl(self._to_device(frames_u8), det_threshold)
+
+    def recalibrate_int8(self, crops_u8=None):
+        """(Re)calibrate the int8 embedder's activation scales.  The int8
+        PTQ embedder (``embed_int8``, ROADMAP Queue 1 item 4) is not ported,
+        so no engine here holds int8 weights: this raises the reference's
+        error for such an engine."""
+        raise ValueError("engine was not built with embed_int8")
 
     def _has_packed_stem(self) -> bool:
         """Whether the packed-input programs can run: "unpack" needs nothing

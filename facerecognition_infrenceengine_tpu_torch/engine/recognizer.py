@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
-from ..core.config import Config
+from ..core.config import Config, get_config
 from ..models.zoo import FaceAnalysis
 from .gallery import GalleryManager
 
@@ -72,7 +72,7 @@ def draw_enhanced_bounding_box(frame, bbox, color, person_info, detection_score,
 
 class FaceRecognitionProcessor:
     def __init__(self, gallery: GalleryManager, face_app=None, cfg: Config | None = None):
-        cfg = cfg or Config()
+        cfg = cfg or get_config()
         self.gallery = gallery
         self.face_app = face_app
         self.detection_threshold = cfg.thresholds.detection

@@ -22,7 +22,10 @@ the host (``encode_frame``: 4:2:0 YUV in s2d4 layout, content rows only,
 1.5 B/px) and the batch runs ``detect_align_embed_yuv420_flat`` -- when
 recognition is on, the attribute heads are off and every frame fits
 unscaled, as the reference decides; a batch mixing packs with raw frames
-decodes the packs on the host and takes the raw-RGB path.
+decodes the packs on the host and takes the raw-RGB path.  With
+``EngineConfig.upload_on_submit`` ``encode_frame`` also uploads the pack
+from the calling (capture) thread, and a batch of such device packs is
+stacked on the device.
 
 ``FakeFaceAnalysis`` is the deterministic test double: it decodes a face
 descriptor hidden in the pixels (``encode_fake_face``).
@@ -34,10 +37,12 @@ import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from .. import native
-from ..core.config import EngineConfig
-from ..engine.pipeline import _YUV_BLACK, FaceEngine, bucket
+from ..core.config import EngineConfig, get_config
+from ..core.device import resolve_device
+from ..engine.pipeline import _YUV_BLACK, FaceEngine, bucket, yuv_black
 from ..ops.align import ARCFACE_DST
 from ..ops.yuv import yuv420p4_to_rgb_host
 
@@ -68,7 +73,7 @@ class FaceAnalysis:
     def __init__(self, name: str = "buffalo_l", cfg: EngineConfig | None = None,
                  engine=None, allowed_modules=None, device=None):
         self.name = name
-        self.cfg = cfg or EngineConfig()
+        self.cfg = cfg or get_config().engine
         self.device = device
         self._engine = engine
         self.det_thresh = 0.3
@@ -91,6 +96,8 @@ class FaceAnalysis:
             # mobile_facenet_v1 -> MobileFaceNet
             rec_arch = "mobilefacenet" if "facenet" in self.name else "r50"
             self._engine = FaceEngine(self.cfg, rec_arch=rec_arch, device=self.device)
+        # the engine's resolved device, which the serving threads bind to
+        self.device = self._engine.device
         return self._engine
 
     @property
@@ -165,18 +172,42 @@ class FaceAnalysis:
         s2d4``'s canvas, which hold the frame (the letterbox puts it at the
         top-left; later rows are padding the device re-creates), letterboxed
         onto a canvas of those rows only.  Returns the frame unchanged for
-        the rgb transport or a frame that needs a resize."""
+        the rgb transport or a frame that needs a resize.
+
+        With ``upload_on_submit`` the pack is uploaded here, on the calling
+        (capture) thread, and returned as a tensor on the engine's device
+        (``cuda`` unless the app or its engine names another)."""
         dh, dw = self.cfg.det_size
         h, w = frame_bgr.shape[:2]
         if self.cfg.stream_transport != "yuv420" or min(dh / h, dw / w) != 1.0:
             return frame_bgr
         rgb = np.ascontiguousarray(frame_bgr[..., ::-1])
-        return native.letterbox_yuv420_s2d4(rgb, min(-(-h // 4) * 4, dh), dw)[0]
+        pack = native.letterbox_yuv420_s2d4(rgb, min(-(-h // 4) * 4, dh), dw)[0]
+        if self.cfg.upload_on_submit:
+            # the engine's device (once built, ``self.device`` is it) without
+            # building it here: N capture threads call this at once
+            return torch.from_numpy(pack).to(resolve_device(self.device))
+        return pack
 
     @staticmethod
-    def _stack_yuv(packs, dw: int) -> np.ndarray:
+    def _stack_yuv(packs, dw: int):
         """Stack content-row packs into one [bucket(n), rows, dw/4, 24] batch;
-        the unfilled area is YUV black."""
+        the unfilled area is YUV black.  Device packs (``upload_on_submit``)
+        of one shape are stacked on their device, padded there with YUV
+        black; packs of mixed shapes are brought to the host and stacked
+        there."""
+        tensors = [p for p in packs if isinstance(p, torch.Tensor)]
+        if tensors:
+            dev = tensors[0].device
+            if len({tuple(p.shape) for p in packs}) == 1:
+                stacked = torch.stack([p.to(dev) if isinstance(p, torch.Tensor)
+                                       else torch.from_numpy(p).to(dev) for p in packs])
+                pad = bucket(len(packs)) - len(packs)
+                if pad:
+                    stacked = torch.cat([stacked, yuv_black((pad,) + tuple(stacked.shape[1:3]),
+                                                            dev)])
+                return stacked
+            packs = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p for p in packs]
         rows = max(p.shape[0] for p in packs)
         stacked = np.empty((bucket(len(packs)), rows, dw // 4, 24), np.uint8)
         stacked[...] = np.asarray(_YUV_BLACK, np.uint8)
@@ -193,7 +224,8 @@ class FaceAnalysis:
         """Packs in a batch that cannot take the yuv path are decoded back to
         BGR content rows on the host (the 4:2:0 chroma loss was paid at
         encode), so the raw path sees plain frames."""
-        return [np.ascontiguousarray(yuv420p4_to_rgb_host(np.asarray(f))[..., ::-1])
+        return [np.ascontiguousarray(yuv420p4_to_rgb_host(
+                    f.cpu().numpy() if isinstance(f, torch.Tensor) else np.asarray(f))[..., ::-1])
                 if self._is_pack(f) else f for f in frames]
 
     # ------------------------------------------------------------ batches

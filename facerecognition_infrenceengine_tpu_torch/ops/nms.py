@@ -36,7 +36,6 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int = 32,
     iou = pairwise_iou(boxes2, boxes2, offset=iou_offset)  # [N, K, K]
     rows = torch.arange(n, device=scores.device)
     cols = torch.arange(k, device=scores.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=live.dtype, device=live.device)
     picks, pick_scores = [], []
     # Once a step finds nothing live, every later step finds nothing too,
     # so slot ``step`` is the step's pick.
@@ -45,9 +44,9 @@ def nms_padded(boxes: torch.Tensor, scores: torch.Tensor, *, max_out: int = 32,
         s = live[rows, i]
         ok = s > float("-inf")
         suppress = (iou[rows, i] > iou_thresh) | (cols[None, :] == i[:, None])
-        live = torch.where(ok[:, None] & suppress, neg_inf, live)
+        live = live.masked_fill(ok[:, None] & suppress, float("-inf"))
         picks.append(torch.where(ok, i, torch.full_like(i, -1)))
-        pick_scores.append(torch.where(ok, s, neg_inf))
+        pick_scores.append(s.masked_fill(~ok, float("-inf")))
     picks = torch.stack(picks, dim=1)
     pick_scores = torch.stack(pick_scores, dim=1)
     valid = pick_scores > float("-inf")

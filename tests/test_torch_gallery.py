@@ -358,7 +358,7 @@ def test_constructor_contract():
     import torch
 
     ds = Datastore(Config())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         gallery.GalleryManager(ds, Config(), mesh=object(), device="cpu")
     empty = gallery.GalleryManager(ds, Config(), initial_load=False, device="cpu")
     assert empty.last_sync_time is None and empty.is_empty()

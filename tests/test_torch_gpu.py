@@ -30,7 +30,7 @@ def cuda():
 def test_resolving_cuda_turns_tf32_off(cuda):
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
-    assert resolve_device() == torch.device("cuda")
+    assert resolve_device() == torch.device("cuda", torch.cuda.current_device())
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
 
@@ -496,3 +496,122 @@ def test_onnx_runner_and_mobilefacenet_on_the_card_equal_the_cpu(cuda):
         got = m.to(cuda)(arcface.preprocess(crops.to(cuda))).cpu().numpy()
     cos = (want * got).sum(1) / np.linalg.norm(want, axis=1) / np.linalg.norm(got, axis=1)
     assert cos.min() >= 1 - 1e-4, cos
+
+
+def test_microbatcher_serves_packs_uploaded_on_submit(cuda):
+    """The serving host path on the card: two capture threads encode and
+    upload yuv420 packs (upload_on_submit), the batcher stacks them on the
+    card and dispatches get_batch_async; every frame's faces equal the same
+    engine's on the CPU (boxes within 1e-3 px + 5e-6 of the largest
+    coordinate, embeddings within 1 - cos 1e-4)."""
+    import threading
+
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine.microbatch import MicroBatcher
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis
+
+    cfg = EngineConfig(det_size=(128, 128), max_faces=4, pre_nms_topk=64, dtype="float32",
+                       microbatch_max=4, frame_queue_depth=4, stream_transport="yuv420",
+                       upload_on_submit=True)
+    apps = {dev: FaceAnalysis(cfg=cfg, allowed_modules=("detection", "recognition"),
+                              device=dev) for dev in ("cuda", "cpu")}
+    for app in apps.values():
+        app.prepare(det_thresh=0.5)
+    card = apps["cuda"]
+    rng = np.random.default_rng(0)
+    frames = {src: [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8) for _ in range(4)]
+              for src in ("cam0", "cam1")}
+    pack = card.encode_frame(frames["cam0"][0])
+    assert isinstance(pack, torch.Tensor) and pack.is_cuda
+    assert card._stack_yuv([pack, pack, pack], 128).is_cuda
+    mb = MicroBatcher(card, cfg)
+    mb.start()
+    futures = {}
+    try:
+        def capture(src):
+            for k, frame in enumerate(frames[src]):
+                futures[src, k] = mb.submit(src, frame, prepare=card.encode_frame)
+
+        threads = [threading.Thread(target=capture, args=(src,)) for src in frames]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        results = {key: fut.result(timeout=120) for key, fut in futures.items()}
+    finally:
+        mb.stop()
+    assert mb.stats["frames"] == 8 and mb.stats["dispatches"] >= 2
+    for (src, k), faces in results.items():
+        want = apps["cpu"].get_batch([frames[src][k]])[0]
+        assert len(faces) == len(want) > 0
+        scale = max(np.abs(np.concatenate([f.bbox, f.kps.ravel()])).max() for f in want)
+        for g, w in zip(faces, want):
+            np.testing.assert_allclose(g.bbox, w.bbox, rtol=0, atol=1e-3 + 5e-6 * scale)
+            np.testing.assert_allclose(g.kps, w.kps, rtol=0, atol=1e-3 + 5e-6 * scale)
+            assert float(g.normed_embedding @ w.normed_embedding) >= 1 - 1e-4
+
+
+def test_serving_threads_bind_to_the_engines_card(cuda):
+    """An unindexed ``cuda`` resolves to the building thread's current card,
+    FaceAnalysis records its engine's resolved device, and the batcher's
+    dispatch and resolver threads run on the app's card (the last one)."""
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine.microbatch import MicroBatcher
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis
+
+    app = FaceAnalysis(cfg=EngineConfig(det_size=(128, 128), max_faces=4, pre_nms_topk=64),
+                       allowed_modules=("detection", "recognition"))
+    app.prepare(det_thresh=0.5)
+    assert app.device == torch.device("cuda", torch.cuda.current_device())
+
+    class Probe:
+        device = torch.device("cuda", torch.cuda.device_count() - 1)
+        seen = []
+
+        def get_batch_async(self, frames, max_num=0):
+            self.seen.append(torch.cuda.current_device())
+
+            def resolve():
+                self.seen.append(torch.cuda.current_device())
+                return [[] for _ in frames]
+            return resolve
+
+    probe = Probe()
+    mb = MicroBatcher(probe, EngineConfig())
+    mb.start()
+    try:
+        assert mb.submit("cam0", np.zeros((8, 8, 3), np.uint8)).result(timeout=60) == []
+    finally:
+        mb.stop()
+    assert probe.seen and set(probe.seen) == {probe.device.index}
+
+
+def test_get_batch_async_on_uploaded_packs_makes_no_synchronizing_call(cuda):
+    """The streaming dispatch does not wait for the card: on yuv packs
+    uploaded by encode_frame (upload_on_submit), get_batch_async through K4,
+    K3 on the packed windows and the embedder makes no synchronizing CUDA
+    call (torch's sync debug mode raises on one), and resolve() gives
+    get_batch's faces."""
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis
+
+    cfg = EngineConfig(det_size=(128, 128), max_faces=4, pre_nms_topk=64,
+                       stream_transport="yuv420", upload_on_submit=True,
+                       packed_stem_impl="pallas")
+    app = FaceAnalysis(cfg=cfg, allowed_modules=("detection", "recognition"), device="cuda")
+    app.prepare(det_thresh=0.5)
+    rng = np.random.default_rng(1)
+    frames = [rng.integers(0, 256, (96, 128, 3), dtype=np.uint8) for _ in range(3)]
+    packs = [app.encode_frame(f) for f in frames]
+    want = app.get_batch(packs)  # also the warm-up: first calls upload constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        resolve = app.get_batch_async(packs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = resolve()
+    assert [len(f) for f in got] == [len(f) for f in want] and sum(len(f) for f in got) > 0
+    for g, w in zip(sum(got, []), sum(want, [])):
+        np.testing.assert_array_equal(g.bbox, w.bbox)
+        np.testing.assert_array_equal(g.normed_embedding, w.normed_embedding)

@@ -268,3 +268,6 @@ def test_port_imports_neither_jax_nor_the_reference():
             offending += [f"{path}:{n}: {line.strip()}"
                           for n, line in enumerate(f, 1) if bad.match(line)]
     assert len(files) > 20 and not offending, offending
+    scanned = {os.path.relpath(f, pkg) for f in files}
+    assert {"engine/microbatch.py", "domain/cameras.py", "web/framework.py", "web/serving.py",
+            "servers/inference_server.py"} <= scanned

@@ -6,10 +6,22 @@ the port's tests; it holds no test of its own).
 subprocess snippets) at ``facerecognition_infrenceengine_tpu_torch``, and
 executes it into ``namespace``: each case becomes a test of the calling
 module, run against the port, while the reference file stays as it is.
+
+``only=(...)`` takes the named test functions alone: the module is parsed,
+and what those cases use -- the fixtures they name, the module-level helpers
+they call, the names of its imports they read -- is kept, recursively; the
+rest of the file, its imports of modules the port does not have among them,
+is dropped before it runs.
+
+``cpu_by_default(monkeypatch)`` makes the port's ``resolve_device(None)``
+the CPU for one test: reference cases build ``GalleryManager(ds, cfg)`` and
+``FaceAnalysis(cfg=...)`` with no device, which on the port means ``cuda``.
 """
 
+import ast
 import os
 import re
+import sys
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 _REFERENCE = re.compile(r"\bfacerecognition_infrenceengine_tpu\b(?!_torch)")
@@ -20,5 +32,96 @@ def port_source(name: str) -> str:
         return _REFERENCE.sub("facerecognition_infrenceengine_tpu_torch", f.read())
 
 
-def exec_port_cases(name: str, namespace: dict) -> None:
-    exec(compile(port_source(name), os.path.join(TESTS, name), "exec"), namespace)
+def _names_used(node) -> set:
+    """Every name a node reads, and the parameter names of the functions in
+    it (pytest resolves parameters to fixtures by name)."""
+    used = set()
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Name):
+            used.add(sub.id)
+        elif isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            used.update(a.arg for a in sub.args.args + sub.args.kwonlyargs)
+    return used
+
+
+def _bound(node) -> set:
+    """The module-level names a statement binds."""
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+        return {node.name}
+    if isinstance(node, (ast.Assign, ast.AnnAssign)):
+        targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+        return {n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name)}
+    return set()
+
+
+def _select(tree: ast.Module, only) -> ast.Module:
+    """The statements of ``tree`` that the test functions ``only`` need."""
+    defs = [n for n in tree.body if _bound(n)]
+    missing = set(only) - {name for n in defs for name in _bound(n)}
+    if missing:
+        raise KeyError(f"no such cases: {sorted(missing)}")
+    only = set(only)
+
+    def needed(node, used):
+        names = _bound(node)
+        return names & used and not any(x.startswith("test") and x not in only for x in names)
+
+    keep = [n for n in defs if _bound(n) & (only | {"pytestmark"})]
+    used = set().union(*(_names_used(n) for n in keep))
+    while True:
+        more = [n for n in defs if n not in keep and needed(n, used)]
+        if not more:
+            break
+        keep += more
+        used |= set().union(*(_names_used(n) for n in more))
+    loose = [n for n in tree.body if not _bound(n) and not isinstance(
+        n, (ast.Import, ast.ImportFrom)) and not (isinstance(n, ast.Expr)
+                                                  and isinstance(n.value, ast.Constant))]
+    used |= set().union(*(_names_used(n) for n in loose))
+    body = []
+    for node in tree.body:
+        if node in keep:
+            body.append(node)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            aliases = [a for a in node.names
+                       if (a.asname or a.name.split(".")[0]) in used]
+            if aliases:
+                node.names = aliases
+                body.append(node)
+        elif isinstance(node, ast.Expr) and isinstance(node.value, ast.Constant):
+            continue  # the docstring
+        elif not _bound(node):
+            body.append(node)  # module-level statements (pytestmark, asserts)
+    return ast.fix_missing_locations(ast.Module(body=body, type_ignores=[]))
+
+
+def exec_port_cases(name: str, namespace: dict, only=None) -> None:
+    path = os.path.join(TESTS, name)
+    source = port_source(name)
+    if only is None:
+        exec(compile(source, path, "exec"), namespace)
+        return
+    exec(compile(_select(ast.parse(source, path), only), path, "exec"), namespace)
+
+
+def cpu_by_default(monkeypatch) -> None:
+    """For one test, every port module's ``resolve_device`` maps ``None`` to
+    the CPU (an explicit device is resolved as given)."""
+    import importlib
+
+    from facerecognition_infrenceengine_tpu_torch.core import device
+
+    # import every module that binds resolve_device first: one imported
+    # while the patch is on would keep the patched function for good
+    for mod_name in ("engine.gallery", "engine.pipeline", "models.onnx_exec", "models.zoo",
+                     "domain.cameras", "servers.inference_server"):
+        importlib.import_module(f"facerecognition_infrenceengine_tpu_torch.{mod_name}")
+    real = device.resolve_device
+
+    def resolve(dev=None):
+        return real("cpu" if dev is None else dev)
+
+    for mod_name, mod in list(sys.modules.items()):
+        if (mod_name.startswith("facerecognition_infrenceengine_tpu_torch.")
+                and getattr(mod, "resolve_device", None) is real):
+            monkeypatch.setattr(mod, "resolve_device", resolve)

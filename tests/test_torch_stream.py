@@ -76,7 +76,7 @@ def test_config_fields():
     cfg = EngineConfig()
     assert (cfg.stem_kernel, cfg.packed_stem_impl, cfg.stream_transport) == ("off", "unpack", "rgb")
     assert cfg.gallery_dtype == "float32"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         EngineConfig(packed_stem_impl="xla")
     assert not FaceEngine(EngineConfig(**dict(KW, stem_kernel="auto")), device="cpu",
                           **ARCH)._stem_kernel_raw
