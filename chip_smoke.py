@@ -206,11 +206,15 @@ from __future__ import annotations
 
 import dataclasses
 import faulthandler
+import hashlib
+import io
 import json
+import logging
 import os
 import shutil
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -219,7 +223,9 @@ import time
 import urllib.error
 import urllib.request
 import weakref
+import zlib
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -252,6 +258,18 @@ SERVER_FPS = 30.0               # each stand-in camera's frame rate
 SERVER_WARMUP_S = 3.0           # after the first result, before the measured window
 SERVER_WINDOW_S = 8.0
 SERVER_BUCKETS = (1, 2, 4, 8)   # the batch shapes a batcher of microbatch_max 8 dispatches
+KIOSK_H, KIOSK_W = 720, 1280     # the enrollment photos: a kiosk webcam
+ENROLL_EMPLOYEES = 64           # registered through the API, 3 poses each
+ENROLL_DUPLICATES = 4           # of them registered again under new ids
+COUNT_CAMERAS = 4               # the counter's stand-in cameras: entry, exit, entry, exit
+COUNT_WARMUP_S = 2.0            # after every camera's first result
+COUNT_WINDOW_S = 10.0
+REPLAY_EPS = 1e-5               # a float64 replay this close to a threshold decides nothing
+# the seeded, untrained embedder puts two persons' photos at cosine 0.90 (p50) up
+# to 0.98, one person's poses at 0.78-0.99: at the shipped duplicate_face 0.4
+# every registration after the first ends duplicate (67 of 68 on the H100).
+# Above 0.999 only a re-registration of the same photos is a duplicate
+ENROLL_DUPLICATE_FACE = 0.999
 # the cv2 constants CameraManager sets on its capture (OpenCV's values)
 CAP_PROPS = {"CAP_PROP_FRAME_WIDTH": 3, "CAP_PROP_FRAME_HEIGHT": 4, "CAP_PROP_FPS": 5,
              "CAP_PROP_BUFFERSIZE": 38}
@@ -541,7 +559,7 @@ class ReplayCapture:
     camera, never the card or a kernel): each capture replays ``frames`` in
     a loop at SERVER_FPS, a fresh copy a read (the results stage draws its
     HUD into the frame it gets), and tags the copy with its index in
-    ``frames`` (``frame_index``)."""
+    ``frames`` (``frame_index``) and the time of its read (``read_time``)."""
 
     frames: list = []
     offered = 0
@@ -568,7 +586,7 @@ class ReplayCapture:
         self.k += 1
         frame = self.frames[k].copy()
         with ReplayCapture._lock:
-            ReplayCapture._tags[id(frame)] = (weakref.ref(frame), k)
+            ReplayCapture._tags[id(frame)] = (weakref.ref(frame), k, time.perf_counter())
             ReplayCapture.offered += 1
         return True, frame
 
@@ -576,11 +594,20 @@ class ReplayCapture:
         pass
 
     @classmethod
-    def frame_index(cls, frame) -> int:
+    def _tag(cls, frame) -> tuple:
         with cls._lock:
-            ref, k = cls._tags[id(frame)]
+            ref, k, t = cls._tags[id(frame)]
         check(ref() is frame, "a frame's tag belongs to another frame")
-        return k
+        return k, t
+
+    @classmethod
+    def frame_index(cls, frame) -> int:
+        return cls._tag(frame)[0]
+
+    @classmethod
+    def read_time(cls, frame) -> float:
+        """The host clock (perf_counter) at the read that returned ``frame``."""
+        return cls._tag(frame)[1]
 
 
 def install_camera(frames):
@@ -608,11 +635,17 @@ def install_camera(frames):
 _NO_PROXY = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
 
-def http_json(method: str, url: str, body=None, timeout: float = 300.0):
-    """One HTTP request to the local control API -> (status, JSON body)."""
-    data = None if body is None else json.dumps(body).encode()
-    req = urllib.request.Request(url, data=data, method=method,
-                                 headers={"Content-Type": "application/json"})
+def http_json(method: str, url: str, body=None, timeout: float = 300.0, files=None):
+    """One HTTP request to a local API -> (status, JSON body).  ``body`` goes
+    as JSON, or with ``files`` (name -> (filename, bytes, content type)) as
+    multipart form fields, encoded as the port's WSGI test client does."""
+    from facerecognition_infrenceengine_tpu_torch.web.framework import _encode_multipart
+
+    if files is not None:
+        data, ctype = _encode_multipart(body or {}, files)
+    else:
+        data, ctype = None if body is None else json.dumps(body).encode(), "application/json"
+    req = urllib.request.Request(url, data=data, method=method, headers={"Content-Type": ctype})
     try:
         with _NO_PROXY.open(req, timeout=timeout) as resp:
             return resp.status, json.loads(resp.read() or b"null")
@@ -976,18 +1009,21 @@ def _server_run(torch, card, dev, label, cfg, face_app, ds, company, run, person
         inside, mb = window.is_set(), cm.batcher
         k3, k4 = Counter(warp_kernel.warp_rois.launches_by_size), stem_kernel.fused_stem.launches
         before = mb._inflight_n if mb is not None else 0
-        t0 = time.perf_counter()
-        resolve = orig[0](self, frames_, max_num)
-        took = time.perf_counter() - t0
-        stalled = stall.is_set() and not rec["stall"]
-        if stalled:
-            # the card, held up ~0.2 s behind this batch, is the slower side
-            torch.cuda._sleep(400_000_000)
-        running = False  # the batch still on the card as its dispatch returns
-        if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-            running = not done.query()
+        # the hook's own CUDA calls, like the path's, run inside the device
+        # gate (a trace starts and stops with no thread calling into CUDA)
+        with metrics.device_work():
+            t0 = time.perf_counter()
+            resolve = orig[0](self, frames_, max_num)
+            took = time.perf_counter() - t0
+            stalled = stall.is_set() and not rec["stall"]
+            if stalled:
+                # the card, held up ~0.2 s behind this batch, is the slower side
+                torch.cuda._sleep(400_000_000)
+            running = False  # the batch still on the card as its dispatch returns
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+                running = not done.query()
         if inside and window.is_set():
             rec["dispatch"].append((len(frames_), before, running,
                                     dict(Counter(warp_kernel.warp_rois.launches_by_size) - k3),
@@ -1393,56 +1429,862 @@ def _server_run(torch, card, dev, label, cfg, face_app, ds, company, run, person
     return out
 
 
-def entry_point_check(card: str) -> dict:
-    """``python -m ...servers.inference_server`` in a subprocess on a memory://
-    store: it answers /api/embeddings/stats, and exits 0 on SIGTERM."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    port = free_port()
-    env = dict(os.environ, MONGODB_URI="memory://",
-               PYTHONPATH=os.pathsep.join([root] + [p for p in [os.environ.get("PYTHONPATH")]
-                                                    if p]))
-    workdir = tempfile.mkdtemp(prefix="fre_server_")  # the server's log file lands here
-    t0 = time.perf_counter()
-    with open(os.path.join(workdir, "stdout.txt"), "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "facerecognition_infrenceengine_tpu_torch.servers."
-             "inference_server", "--host", "127.0.0.1", "--port", str(port)],
-            cwd=workdir, env=env, stdout=log, stderr=subprocess.STDOUT)
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of ``rgb`` (HxWx3 uint8), written with the standard
+    library: rows Sub-filtered, zlib level 1."""
+    h, w, _ = rgb.shape
+    rows = rgb.reshape(h, w * 3)
+    sub = rows.copy()
+    sub[:, 3:] -= rows[:, :-3]  # uint8 arithmetic wraps mod 256, as the filter does
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def kiosk_person(seed: int, poses: int = 3) -> list:
+    """One person's seeded KIOSK_W x KIOSK_H RGB kiosk-webcam photos: a
+    shaded backdrop with filled ellipses of its own colours, each pose the
+    scene moved by up to 8 px, with sensor noise of +-3."""
+    rng = np.random.default_rng(seed)
+    yy = np.arange(KIOSK_H, dtype=np.float32)[:, None]
+    xx = np.arange(KIOSK_W, dtype=np.float32)[None, :]
+    c0, c1 = rng.uniform(30, 220, 3), rng.uniform(30, 220, 3)
+    t = xx * rng.uniform(-1, 1) + yy * rng.uniform(-1, 1)
+    t = (t - t.min()) / max(float(t.max() - t.min()), 1.0)
+    scene = (c0 + (c1 - c0) * t[..., None]).astype(np.uint8)
+    for _ in range(6):
+        cx, cy = rng.uniform(0, KIOSK_W), rng.uniform(0, KIOSK_H)
+        ax, ay = rng.uniform(40, 300, 2)
+        y0, y1 = int(max(cy - ay, 0)), int(min(cy + ay + 1, KIOSK_H))
+        x0, x1 = int(max(cx - ax, 0)), int(min(cx + ax + 1, KIOSK_W))
+        inside = ((xx[:, x0:x1] - cx) / ax) ** 2 + ((yy[y0:y1] - cy) / ay) ** 2 <= 1
+        scene[y0:y1, x0:x1][inside] = rng.integers(0, 256, 3)
+    shots = []
+    for _ in range(poses):
+        dy, dx = rng.integers(-8, 9, 2)
+        moved = np.roll(scene, (int(dy), int(dx)), (0, 1)).astype(np.int16)
+        shots.append(np.clip(moved + rng.integers(-3, 4, scene.shape, dtype=np.int16),
+                             0, 255).astype(np.uint8))
+    return shots
+
+
+def largest_face(faces):
+    """The enrollment worker's pick among a photo's faces (the largest box,
+    areas in the boxes' float32) -> its index."""
+    areas = [(f.bbox[2] - f.bbox[0]) * (f.bbox[3] - f.bbox[1]) for f in faces]
+    return int(np.argmax(areas))
+
+
+class ErrorLog(logging.Handler):
+    """The records of WARNING and above a logger gets (the reference's broad
+    ``except`` blocks log there and carry on), but for ``ignore``'s
+    messages."""
+
+    def __init__(self, ignore: tuple = ()):
+        super().__init__(logging.WARNING)
+        self.ignore, self.records = ignore, []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if not any(part in msg for part in self.ignore):
+            self.records.append(f"{record.name}: {msg}")
+
+
+class RecordingDetector:
+    """The enrollment worker's detector: the real FaceAnalysis, each ``get``
+    recorded (the photo's hash, the faces, host ms, the calling thread's
+    current card).  A measurement hook: the worker's code is unchanged."""
+
+    def __init__(self, app):
+        self.app, self.device = app, app.device
+        self.calls, self._lock = [], threading.Lock()
+
+    def get(self, img, max_num: int = 0):
+        import torch
+
+        t0 = time.perf_counter()
+        faces = self.app.get(img, max_num)
+        ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self.calls.append((hashlib.sha1(img.tobytes()).hexdigest(), faces, ms,
+                               torch.cuda.current_device()))
+        return faces
+
+
+def _unit64(v) -> np.ndarray:
+    v = np.asarray(v, np.float64)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _pct(values, q) -> float:
+    return float(np.percentile(values, q)) if len(values) else float("nan")
+
+
+def done_embeddings(ds, company=None) -> dict:
+    """Every employee whose buffalo_l entry is done (of ``company``, or all)
+    -> (id hex, employeeId) -> its stored embedding, read from the store."""
+    from facerecognition_infrenceengine_tpu_torch.core.serialization import (
+        deserialize_embedding)
+
+    query = {"employeeEmbeddings.buffalo_l.status": "done"}
+    if company is not None:
+        query["companyId"] = company
+    out = {}
+    for doc in ds.employee_info.find(query):
+        blob = ds.employee_embeddings.get(doc["employeeEmbeddings"]["buffalo_l"]["embeddingId"])
+        out[(str(doc["_id"]), doc["employeeId"])] = deserialize_embedding(blob.read())
+    return out
+
+
+def enroll_phase(torch, card: str, ds, cfg, gallery, app) -> tuple:
+    """[enroll]: the REST API (create_app over HTTP on web.serving) registers
+    ENROLL_EMPLOYEES employees of one company with the 3 POSES photos each
+    at 1280x720 (PNG, or JPEG where the host codec has libjpeg), then
+    ENROLL_DUPLICATES of them again under new employee ids with the same
+    photos; a FaceEmbeddingWorker with ``cfg`` and ``app`` (FaceAnalysis(
+    "buffalo_l") with its four modules on the card, as the worker builds it)
+    drains each wave in its run loop on its executor threads.  Launch counts
+    are zeroed before the first register call and read once the queue is
+    drained (K3), and around the gallery match (K1).  Checked: every job
+    ends done, failed or duplicate with no retry and nothing logged by the
+    worker at warning or above; each photo's faces in the worker equal a
+    direct get of the same photo bit for bit, on the detector's card; each
+    status and stored embedding equals the reference's rules replayed on the
+    host in float64 over those faces (largest face, poses pairwise >=
+    same_person, their mean, a company duplicate > duplicate_face among the
+    done entries the company held when the job ran); the re-registrations
+    end duplicate; after one force_sync ``gallery`` holds every done
+    employee of the store and matches each one's center photo through K1 to
+    the host's float64 top-1 of its company.  -> (the phase's record, the
+    photos' encoded bytes)."""
+    from facerecognition_infrenceengine_tpu_torch import native
+    from facerecognition_infrenceengine_tpu_torch.api import create_app
+    from facerecognition_infrenceengine_tpu_torch.api.constants import POSES
+    from facerecognition_infrenceengine_tpu_torch.core.clock import get_current_utc
+    from facerecognition_infrenceengine_tpu_torch.domain.enrollment import FaceEmbeddingWorker
+    from facerecognition_infrenceengine_tpu_torch.ops import match_kernel, warp_kernel
+    from facerecognition_infrenceengine_tpu_torch.store import ObjectId
+    from facerecognition_infrenceengine_tpu_torch.web import serve
+
+    t_phase = time.perf_counter()
+    jpeg = native.have_jpeg()
+    fmt = "jpeg" if jpeg else "png"
+
+    def person(n):  # numpy and zlib release the interpreter lock: 8 at a time
+        return [native.encode_jpeg(p, quality=95) if jpeg else png_bytes(p)
+                for p in kiosk_person(2100 + n)]
+
+    with ThreadPoolExecutor(8) as pool:
+        encoded = list(pool.map(person, range(ENROLL_EMPLOYEES)))
+    gen_s = time.perf_counter() - t_phase
+    if not jpeg:
+        # without libjpeg a JPEG upload decodes through Pillow, where it imports
         try:
-            deadline = time.time() + 180
-            while True:
-                try:
-                    st, stats = http_json("GET", f"http://127.0.0.1:{port}/api/embeddings/stats",
-                                          timeout=5)
+            from PIL import Image
+        except ImportError:
+            say("[enroll] no Pillow on this host: JPEG uploads do not decode here")
+        else:
+            photo = kiosk_person(2100, poses=1)[0]
+            buf = io.BytesIO()
+            Image.fromarray(photo).save(buf, "JPEG", quality=95)
+            got = native.decode_image(buf.getvalue())
+            check(got is not None and np.array_equal(
+                got, np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))),
+                "[enroll] a JPEG photo did not decode through Pillow")
+            say("[enroll] a JPEG photo decodes through Pillow on this host (no libjpeg)")
+    say(f"[enroll] {card} | {ENROLL_EMPLOYEES} x {len(POSES)} photos {KIOSK_W}x{KIOSK_H} as {fmt} "
+        f"({sum(len(b) for s in encoded for b in s) / 2**20:.1f} MiB; host codec JPEG "
+        f"{'compiled in' if jpeg else 'not compiled: no libjpeg, so PNG, decoded through PIL'}) "
+        f"made in {gen_s:.1f} s")
+
+    alone = []  # one photo's get with the card to itself
+    img = np.ascontiguousarray(native.decode_image(encoded[0][0])[..., ::-1])
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app.get(img)
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    detector = RecordingDetector(app)
+    worker = FaceEmbeddingWorker(ds, cfg, detector=detector, worker_id="smoke-worker")
+    errors = ErrorLog(ignore=("usage too high",))
+    logging.getLogger("fre.enrollment").addHandler(errors)
+    api = create_app(ds, cfg)
+    port = free_port()
+    server = serve(api, "127.0.0.1", port, background=True)
+    base = f"http://127.0.0.1:{port}{cfg.api.url_prefix}"
+    st, body = http_json("POST", base + "/companies/seed")
+    check(st == 201, f"[enroll] seeding a company: {st} {body}")
+    company = body["company"]["_id"]
+    company_oid = ObjectId(company)
+    employees = [(f"K{n:03d}", n) for n in range(ENROLL_EMPLOYEES)]
+    dups = [(f"K{n:03d}-again", n) for n in range(0, ENROLL_EMPLOYEES,
+                                                   ENROLL_EMPLOYEES // ENROLL_DUPLICATES)]
+    registered = {}
+    warp_kernel.warp_rois.launches_by_size.clear()
+    warp_kernel.warp_rois.launches = 0
+    match_kernel.gallery_top1.launches = 0
+    thread = threading.Thread(target=worker.run, name="enroll-worker", daemon=True)
+    t_drain = time.perf_counter()
+    thread.start()
+    reg_ms = []
+    try:
+        for wave in (employees, dups):
+            for emp, n in wave:
+                files = {pose: (f"{pose}.{fmt}", encoded[n][k], f"image/{fmt}")
+                         for k, pose in enumerate(POSES)}
+                t0 = time.perf_counter()
+                st, body = http_json("POST", base + "/employees/register",
+                                     {"employeeId": emp, "employeeName": f"Kiosk {emp}",
+                                      "companyId": company}, files=files)
+                reg_ms.append((time.perf_counter() - t0) * 1e3)
+                check(st == 200, f"[enroll] register {emp}: {st} {body}")
+                registered[emp] = (n, get_current_utc())
+            deadline = time.time() + 300
+            while ds.embedding_jobs.count_documents(
+                    {"model": cfg.worker.model_name,
+                     "status": {"$in": ["queued", "started"]}}) > 0:
+                check(time.time() < deadline and thread.is_alive(),
+                      "[enroll] the worker did not drain the queue in 300 s")
+                time.sleep(0.05)
+        drain_s = time.perf_counter() - t_drain  # both waves, registration included
+    finally:
+        worker.stop()
+        thread.join(timeout=60)
+        server.shutdown()
+        server.server_close()
+        logging.getLogger("fre.enrollment").removeHandler(errors)
+    k3 = dict(warp_kernel.warp_rois.launches_by_size)
+    check(not thread.is_alive(), "[enroll] the worker's run loop did not stop")
+    check(not errors.records, f"[enroll] the worker logged {len(errors.records)} warnings or "
+          f"errors (its broad except blocks): {errors.records[:5]}")
+
+    # every job terminal, first time round
+    docs = {d["employeeId"]: d for d in ds.employee_info.find({"companyId": company_oid})}
+    jobs = {}
+    for emp in registered:
+        job = ds.embedding_jobs.find_one({"employeeId": docs[emp]["_id"],
+                                          "model": cfg.worker.model_name})
+        check(job["status"] in ("done", "failed", "duplicate") and "retryCount" not in job,
+              f"[enroll] job of {emp}: {job['status']}, retries {job.get('retryCount')}, "
+              f"{job.get('error')}")
+        jobs[emp] = job
+
+    # the gallery, right after the drain: every done employee after one
+    # force_sync, and K1 on the center photos' faces as the worker got them
+    seen = {}
+    for key, faces, ms, dev_index in detector.calls:
+        check(dev_index == torch.device(app.device).index,
+              f"[enroll] an executor thread ran get on card {dev_index}, not {app.device}")
+        seen.setdefault(key, []).append(faces)
+    photo_key = {(n, k): hashlib.sha1(np.ascontiguousarray(
+        native.decode_image(encoded[n][k])[..., ::-1]).tobytes()).hexdigest()
+        for n in range(ENROLL_EMPLOYEES) for k in range(len(POSES))}
+    check(set(photo_key.values()) <= set(seen), "[enroll] the worker never ran a photo")
+    stored = done_embeddings(ds, company_oid)
+    t0 = time.perf_counter()
+    gallery.force_sync()
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    total = gallery.get_stats()["total_embeddings"]
+    every = done_embeddings(ds)
+    check(total == len(every), f"[enroll] the gallery holds {total} after force_sync, the "
+          f"store {len(every)} done employees")
+    done = list(stored)
+    center_faces = [seen[photo_key[(registered[emp][0], 0)]][0] for _, emp in done]
+    centers = np.stack([fl[largest_face(fl)].normed_embedding for fl in center_faces])
+    match_kernel.gallery_top1.launches = 0
+    t0 = time.perf_counter()
+    scores, ids, _ = gallery.match(centers, company_id=company)
+    match_ms = (time.perf_counter() - t0) * 1e3
+    k1 = match_kernel.gallery_top1.launches
+    served = get_current_utc()
+    index = {pid: i for i, (pid, _) in enumerate(done)}
+    host = _unit64(centers) @ _unit64(np.stack([stored[key] for key in done])).T
+    own = 0
+    for i, (pid, emp) in enumerate(done):
+        top, k = int(np.argmax(host[i])), index.get(ids[i][0])
+        check(k is not None and host[i][k] >= host[i][top] - 1e-5,
+              f"[enroll] {emp}'s center photo matched {ids[i][0]}, the float64 top-1 is "
+              f"{done[top][0]}")
+        own += ids[i][0] == pid
+    check(all(k3.get(size, 0) > 0 for size in (112,) + ATTR_SIZES) and k1 > 0,
+          f"[enroll] a kernel was not launched: K3 by size {k3}, K1 {k1}")
+
+    # each photo's faces in the worker == a direct get of the same photo
+    direct = {}
+    for (n, k), key in photo_key.items():
+        img = np.ascontiguousarray(native.decode_image(encoded[n][k])[..., ::-1])
+        faces = app.get(img)
+        for got in seen[key]:
+            check(len(got) == len(faces) and all(
+                np.array_equal(g.bbox, f.bbox) and np.array_equal(
+                    g.normed_embedding, f.normed_embedding) for g, f in zip(got, faces)),
+                f"[enroll] photo {n}/{POSES[k]}: the worker's faces differ from a direct get")
+        direct[(n, k)] = faces
+    photo_calls = len(detector.calls)
+
+    # the reference's rules, replayed on the host in float64
+    thr_same, thr_dup = cfg.thresholds.same_person, cfg.thresholds.duplicate_face
+    by_emp = {emp: vec for (_, emp), vec in stored.items()}
+    entries = {emp: docs[emp]["employeeEmbeddings"][cfg.worker.model_name] for emp in registered}
+    ambiguous, statuses = 0, Counter()
+    for emp, (n, _) in registered.items():
+        job, entry = jobs[emp], entries[emp]
+        check(entry["status"] == job["status"], f"[enroll] {emp}: the entry says "
+              f"{entry['status']}, the job {job['status']}")
+        statuses[job["status"]] += 1
+        embs = [direct[(n, k)][largest_face(direct[(n, k)])].normed_embedding
+                for k in range(len(POSES)) if direct[(n, k)]]
+        check(len(embs) == len(POSES), f"[enroll] {emp}: a photo has no face")
+        u = _unit64(embs)
+        sims = [float(u[i] @ u[j]) for i in range(len(u)) for j in range(i + 1, len(u))]
+        if min(abs(x - thr_same) for x in sims) < REPLAY_EPS:
+            ambiguous += 1
+            continue
+        if min(sims) < thr_same:
+            check(job["status"] == "failed" and "Different persons" in job.get("error", ""),
+                  f"[enroll] {emp}: poses at cosine {min(sims):.4f} < {thr_same}, yet "
+                  f"{job['status']}")
+            continue
+        avg = np.mean(np.stack([np.asarray(e, np.float32) for e in embs]), axis=0)
+        # the company's done entries before this job started, and before it ended
+        outcomes = set()
+        for until in (job["startedAt"], job["finishedAt"]):
+            cands = [e for e in by_emp if e != emp and entries[e]["finishedAt"] < until]
+            if not cands:
+                outcomes.add(("done", None))
+                continue
+            scores = _unit64(np.stack([by_emp[e] for e in cands])) @ _unit64(avg)
+            best = int(np.argmax(scores))
+            if scores[best] > thr_dup - REPLAY_EPS:
+                outcomes.add(("duplicate", cands[best]))
+            if scores[best] <= thr_dup + REPLAY_EPS:
+                outcomes.add(("done", None))
+        got = (job["status"], entry.get("duplicateOf"))
+        ambiguous += int(len(outcomes) > 1)
+        check(got in outcomes, f"[enroll] {emp}: {got}, the float64 replay gives {outcomes}")
+        if job["status"] == "done":
+            check(np.array_equal(by_emp[emp], avg),
+                  f"[enroll] {emp}: the stored embedding is not the mean of its poses' faces")
+    for emp, n in dups:
+        check(jobs[emp]["status"] == "duplicate", f"[enroll] re-registration {emp} ended "
+              f"{jobs[emp]['status']}")
+    # how far apart the untrained embedder puts poses of one person, and persons
+    largest = {key: _unit64(fl[largest_face(fl)].normed_embedding) for key, fl in direct.items()}
+    pose_cos = [float(largest[(n, i)] @ largest[(n, j)]) for n in range(ENROLL_EMPLOYEES)
+                for i in range(len(POSES)) for j in range(i + 1, len(POSES))]
+    cross = np.stack([largest[(n, 0)] for n in range(ENROLL_EMPLOYEES)])
+    cross = (cross @ cross.T)[np.triu_indices(ENROLL_EMPLOYEES, 1)]
+
+    get_ms = [c[2] for c in detector.calls]
+    job_ms = [(j["finishedAt"] - j["startedAt"]).total_seconds() * 1e3 for j in jobs.values()]
+    reg_done = [(jobs[e]["finishedAt"] - registered[e][1]).total_seconds()
+                for e in registered if jobs[e]["status"] == "done"]
+    rec = {"card": card, "employees": ENROLL_EMPLOYEES, "reregistered": len(dups),
+           "photo_format": fmt, "photo_shape": [KIOSK_H, KIOSK_W],
+           "statuses": dict(statuses), "ambiguous_in_replay": ambiguous,
+           "worker_threads": cfg.worker.max_workers, "photo_gets": photo_calls,
+           "jobs_per_s": len(jobs) / drain_s, "drain_s": drain_s,
+           "register_ms_p50": _pct(reg_ms, 50), "get_ms_p50": _pct(get_ms, 50),
+           "get_ms_p90": _pct(get_ms, 90), "get_ms_alone": alone, "job_ms_p50": _pct(job_ms, 50),
+           "job_ms_p90": _pct(job_ms, 90), "register_to_done_s_p50": _pct(reg_done, 50),
+           "register_to_done_s_max": max(reg_done) if reg_done else None,
+           "force_sync_ms": sync_ms, "first_match_ms": match_ms,
+           "register_to_first_match_s_max": max(
+               (served - registered[e][1]).total_seconds() for _, e in done) if done else None,
+           "gallery_total": total, "center_matches_own_id": own, "center_matches": len(done),
+           "pose_cosine_min": min(pose_cos), "pose_cosine_p50": _pct(pose_cos, 50),
+           "person_cosine_p50": _pct(cross, 50), "person_cosine_p99": _pct(cross, 99),
+           "person_cosine_max": float(cross.max()),
+           "launches": {"warp_rois": k3, "gallery_top1": k1}}
+    say(f"[enroll] {card} | {len(jobs)} jobs {dict(statuses)} in {drain_s:.1f} s "
+        f"({rec['jobs_per_s']:.2f} jobs/s, {cfg.worker.max_workers} executor threads, no retry, "
+        f"nothing logged); get a photo p50 {rec['get_ms_p50']:.1f} / p90 "
+        f"{rec['get_ms_p90']:.1f} ms over {photo_calls} (alone "
+        f"{', '.join(f'{t:.1f}' for t in alone)}), a job p50 {rec['job_ms_p50']:.0f} / p90 "
+        f"{rec['job_ms_p90']:.0f} ms, register p50 {rec['register_ms_p50']:.0f} ms")
+    say(f"[enroll] {card} | every photo's faces equal a direct get bit for bit; every status "
+        f"and stored embedding equals the float64 replay ({ambiguous} within {REPLAY_EPS} of a "
+        f"threshold or in a concurrent window); the {len(dups)} re-registrations are duplicates; "
+        f"float64 cosine of one person's poses min {min(pose_cos):.4f} p50 "
+        f"{rec['pose_cosine_p50']:.4f}, of two persons' center photos p50 "
+        f"{rec['person_cosine_p50']:.4f} p99 {rec['person_cosine_p99']:.4f} max "
+        f"{rec['person_cosine_max']:.4f}")
+    say(f"[enroll] {card} | gallery {total} after one force_sync ({sync_ms:.0f} ms); "
+        f"{len(done)} center photos matched through K1 in {match_ms:.1f} ms, each the "
+        f"float64 top-1 ({own} their own id); register->done p50 "
+        f"{rec['register_to_done_s_p50']:.2f} s max {rec['register_to_done_s_max']:.2f} s, "
+        f"register->first match max {rec['register_to_first_match_s_max']:.2f} s; K3 "
+        f"launches by crop size {k3}, K1 {k1}")
+    return rec, encoded
+
+
+def sample_stacks(threads, seconds: float, interval: float = 0.01) -> Counter:
+    """Where ``threads`` spend their time: every ``interval`` s for ``seconds``,
+    the innermost frame of each one's stack that lies in the port's package
+    (file:function), counted."""
+    ids = {t.ident for t in threads}
+    seen = Counter()
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        for tid, frame in sys._current_frames().items():
+            if tid not in ids:
+                continue
+            where = "outside the package"
+            while frame is not None:
+                path = frame.f_code.co_filename
+                if "facerecognition_infrenceengine_tpu_torch" in path:
+                    where = f"{os.path.basename(path)}:{frame.f_code.co_name}"
                     break
-                except (urllib.error.URLError, ConnectionError, OSError):
-                    check(proc.poll() is None and time.time() < deadline,
-                          f"the entry point did not answer (exit {proc.poll()})")
-                    time.sleep(0.2)
-            up_s = time.perf_counter() - t0
-            proc.send_signal(signal.SIGTERM)
-            rc = proc.wait(timeout=60)
+                frame = frame.f_back
+            seen[where] += 1
+        time.sleep(interval)
+    return seen
+
+
+def count_phase(torch, card: str, frames: list, ds, cfg, gallery, company, app) -> dict:
+    """[count]: servers/people_count as its main runs it, on the card:
+    CameraStreamManager(gallery, CampusPeopleManager(ds, cfg,
+    start_background=True), face_app=None, cfg) with COUNT_CAMERAS stand-in
+    cameras (ReplayCapture over ``frames`` at SERVER_FPS; campus.frame_skip
+    2), so each camera thread builds its own FaceAnalysis("buffalo_l") with
+    its four modules and runs get on each kept frame, then the whole-gallery
+    top-1 (K1).  ``company`` first enrolls every distinct face of
+    frames[:-2] as ``app`` (the same model) gives them on one frame at a
+    time, as the threads run it; the last two frames' faces are left out.
+    build_app(manager) answers over HTTP during a COUNT_WINDOW_S window
+    after a warm-up; launch counts are zeroed as the cameras start and read
+    as they stop.  Checked: each detection carries
+    the host's float64 top-1 over the whole gallery at >= the counting
+    threshold, each unknown scored under the unknown threshold, and faces in
+    the dead zone neither; the campus counters, every person's state and the
+    unknown clusters equal a replay of the calls on a fresh
+    CampusPeopleManager on the CPU; nothing is logged by the counting,
+    campus or camera loops' except blocks.  Returns the phase's record."""
+    from facerecognition_infrenceengine_tpu_torch.core import metrics
+    from facerecognition_infrenceengine_tpu_torch.domain import campus, counting
+    from facerecognition_infrenceengine_tpu_torch.domain.campus import (
+        CameraType, CampusPeopleManager)
+    from facerecognition_infrenceengine_tpu_torch.ops import match_kernel, warp_kernel
+    from facerecognition_infrenceengine_tpu_torch.servers.people_count import build_app
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore
+    from facerecognition_infrenceengine_tpu_torch.web import serve
+
+    tag = "[count]"
+    t0 = time.perf_counter()
+    faces = {}  # embedding bytes -> embedding: one person each
+    for frame in frames[:-2]:
+        for f in app.get(frame):
+            faces.setdefault(f.normed_embedding.tobytes(), f.normed_embedding)
+    ids = write_people(ds, company, np.stack(list(faces.values())), "C")
+    gallery.force_sync()
+    everyone = done_embeddings(ds)
+    gallery_ids = [pid for pid, _ in everyone]
+    id_index = {pid: i for i, pid in enumerate(gallery_ids)}
+    matrix = _unit64(np.stack(list(everyone.values())))
+    check(gallery.get_stats()["total_embeddings"] == len(everyone),
+          f"{tag} the gallery does not hold the store's {len(everyone)} done employees")
+    say(f"{tag} {card} | {len(ids)} distinct faces of frames 1-{len(frames) - 2} enrolled "
+        f"(whole gallery {len(everyone)}) in {time.perf_counter() - t0:.1f} s")
+
+    alone = []  # one get of a frame with the card to itself, as each thread runs it
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        app.get(frames[0])
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t1) * 1e3)
+    manager = CampusPeopleManager(ds, cfg, start_background=True)
+    streams = counting.CameraStreamManager(gallery, manager, face_app=None, cfg=cfg)
+    errors = ErrorLog()
+    loggers = [logging.getLogger(n) for n in ("fre.counting", "fre.campus")]
+    for lg in loggers:
+        lg.addHandler(errors)
+    # measurement hooks, removed after the run: the manager's state-changing
+    # calls in their order (with the time a cleanup read), each processed
+    # frame's read -> state latency, card and gallery matches
+    order_lock, calls, frames_done = threading.Lock(), [], []
+    local = threading.local()
+    real_utc = campus.get_current_utc
+
+    def logged(name):
+        orig = getattr(manager, name)
+
+        def call(*args):
+            with order_lock:
+                calls.append((name, args))
+                rec = getattr(local, "rec", None)
+                if rec is not None:
+                    rec["calls"].append((name, args))
+                return orig(*args)
+        return call
+
+    def cleanup():
+        with order_lock:
+            now = real_utc()
+            calls.append(("cleanup_stale_detections", (now,)))
+            campus.get_current_utc = lambda: now
+            try:
+                return orig_cleanup()
+            finally:
+                campus.get_current_utc = real_utc
+
+    orig_cleanup = manager.cleanup_stale_detections
+    for name in ("process_detection", "process_unknown_detection"):
+        setattr(manager, name, logged(name))
+    manager.cleanup_stale_detections = cleanup
+    orig_match = gallery.match
+
+    def match(embs, company_id=None, k=1):
+        out = orig_match(embs, company_id=company_id, k=k)
+        rec = getattr(local, "rec", None)
+        if rec is not None:
+            rec["matches"].append((np.array(embs), out[0], out[1], company_id))
+        return out
+
+    gallery.match = match
+    orig_frame = counting.CountingProcessor.process_frame
+
+    def process_frame(self, frame, camera_id):
+        t_in = time.perf_counter()
+        local.rec = {"camera": camera_id, "matches": [], "calls": [],
+                     "read": ReplayCapture.read_time(frame)}
+        try:
+            stats = orig_frame(self, frame, camera_id)
         finally:
+            rec, local.rec = local.rec, None
+        with metrics.device_work():
+            card_index = torch.cuda.current_device()
+        rec.update(done=time.perf_counter(), stats=stats, card=card_index, start=t_in)
+        with order_lock:
+            frames_done.append(rec)
+        return stats
+
+    orig_faces = counting.CountingProcessor.process_faces
+
+    def process_faces(self, faces, camera_id):
+        t1 = time.perf_counter()
+        try:
+            return orig_faces(self, faces, camera_id)
+        finally:
+            if getattr(local, "rec", None) is not None:
+                local.rec["faces_s"] = time.perf_counter() - t1
+
+    counting.CountingProcessor.process_frame = process_frame
+    counting.CountingProcessor.process_faces = process_faces
+    restore_camera = install_camera(frames)
+    server = serve(build_app(manager), "127.0.0.1", free_port(), background=True)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    cams = [(f"cam{i}", "entry" if i % 2 == 0 else "exit") for i in range(COUNT_CAMERAS)]
+    mem0 = torch.cuda.memory_allocated()
+    t_start = time.perf_counter()
+    http_ok = Counter()
+    warp_kernel.warp_rois.launches_by_size.clear()
+    warp_kernel.warp_rois.launches = 0
+    match_kernel.gallery_top1.launches = 0
+    try:
+        for cam, kind in cams:
+            streams.start_camera(cam, 0, "campus-1", CameraType(kind), name=cam)
+        deadline = time.time() + 300
+        while {r["camera"] for r in list(frames_done)} != {c for c, _ in cams}:
+            check(time.time() < deadline and all(
+                t.is_alive() for t in streams.camera_threads.values()),
+                f"{tag} a camera thread produced no result in 300 s: {errors.records[:3]}")
+            time.sleep(0.05)
+        first_s = time.perf_counter() - t_start
+        mem_engines = torch.cuda.memory_allocated() - mem0
+        time.sleep(COUNT_WARMUP_S)
+        w0 = time.perf_counter()
+        for path in ("/api/status", "/api/campus/campus-1/status", "/api/campus/campus-1/events",
+                     "/api/campus/campus-1/people", "/api/campus/campus-1/unknown"):
+            st, body = http_json("GET", base + path)
+            check(st == 200, f"{tag} GET {path}: {st} {body}")
+            http_ok[path] += 1
+        # one traced second, on core.metrics' trace thread (the one the
+        # server phase's /api/profiler calls used: a profiler session starts
+        # and stops on one thread)
+        trace_dir = tempfile.mkdtemp(prefix="fre_count_trace_")
+        check(metrics.start_device_trace(trace_dir), f"{tag} a trace was already running")
+        time.sleep(1.0)
+        metrics.stop_device_trace()
+        kernel_names, busy = trace_kernels(trace_dir)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        time.sleep(max(COUNT_WINDOW_S - (time.perf_counter() - w0), 0.0))
+        w1 = time.perf_counter()
+        for path in ("/api/status", "/api/campus/campus-1/status"):
+            st, body = http_json("GET", base + path)
+            check(st == 200, f"{tag} GET {path} at the window's end: {st}")
+        # after the window: where the camera threads spend their time
+        stacks = sample_stacks(list(streams.camera_threads.values()), 3.0)
+    finally:
+        streams.stop_all()
+        k3 = dict(warp_kernel.warp_rois.launches_by_size)
+        k1 = match_kernel.gallery_top1.launches
+        restore_camera()
+        server.shutdown()
+        server.server_close()
+        counting.CountingProcessor.process_frame = orig_frame
+        counting.CountingProcessor.process_faces = orig_faces
+        gallery.match = orig_match
+        for lg in loggers:
+            lg.removeHandler(errors)
+    alive = [t for t in streams.camera_threads.values() if t.is_alive()]
+    check(not alive, f"{tag} {len(alive)} camera threads still run after stop_all")
+    live = (manager.get_campus_status(),
+            {pid: manager.get_person_status(pid) for pid in manager.people_states},
+            {uid: (u.detection_count, sorted(u.cameras_seen), u.avg_embedding.tobytes())
+             for uid, u in manager.unknown_people.get("campus-1", {}).items()})
+    manager.stop()
+    check(not errors.records, f"{tag} {len(errors.records)} warnings or errors logged: "
+          f"{errors.records[:5]}")
+    check(all(r["card"] == torch.device(gallery.device).index for r in frames_done),
+          f"{tag} a camera thread ran off the gallery's card")
+
+    # each face's decision against the host's float64 top-1 over the gallery
+    thr_rec, thr_unk = cfg.thresholds.counting_recognition, cfg.thresholds.definitely_unknown
+    n_faces, decided, ambiguous = 0, Counter(), 0
+    for rec in frames_done:
+        pending = list(rec["calls"])
+        for embs, scores, found, company_id in rec["matches"]:
+            check(company_id is None, f"{tag} a match was scoped to company {company_id}")
+            host = _unit64(embs) @ matrix.T
+            for i in range(len(embs)):
+                n_faces += 1
+                top = int(np.argmax(host[i]))
+                k = id_index.get(found[i][0])
+                check(k is not None and host[i][k] >= host[i][top] - 1e-5
+                      and abs(float(scores[i][0]) - host[i][top]) < 1e-4,
+                      f"{tag} K1 gave {found[i][0]} at {scores[i][0]}, the float64 top-1 is "
+                      f"{gallery_ids[top]} at {host[i][top]}")
+                s = host[i][top]
+                ambiguous += int(min(abs(s - thr_rec), abs(s - thr_unk)) < REPLAY_EPS)
+                head = pending[0] if pending else (None, ())
+                if head[0] == "process_detection" and head[1][0] == found[i][0]:
+                    check(s >= thr_rec - REPLAY_EPS and float(head[1][4]) == float(scores[i][0]),
+                          f"{tag} a detection of {found[i][0]} at {s}")
+                    decided["recognized"] += 1
+                    pending.pop(0)
+                elif head[0] == "process_unknown_detection" and np.array_equal(
+                        head[1][2], embs[i]):
+                    check(s < thr_unk + REPLAY_EPS, f"{tag} an unknown at {s}")
+                    decided["unknown"] += 1
+                    pending.pop(0)
+                else:
+                    check(thr_unk - REPLAY_EPS <= s < thr_rec + REPLAY_EPS,
+                          f"{tag} a face at {s} was neither counted nor clustered")
+                    decided["dead zone"] += 1
+        check(not pending, f"{tag} manager calls left unmatched to faces: {pending[:2]}")
+
+    # the same calls on a fresh manager on the CPU
+    replay = CampusPeopleManager(Datastore(cfg), cfg, start_background=False)
+    for cam, kind in cams:
+        replay.register_camera(cam, "campus-1", CameraType(kind), cam)
+    for name, args in calls:
+        if name == "cleanup_stale_detections":
+            campus.get_current_utc = lambda: args[0]
+            try:
+                replay.cleanup_stale_detections()
+            finally:
+                campus.get_current_utc = real_utc
+        else:
+            getattr(replay, name)(*args)
+    replayed = (replay.get_campus_status(),
+                {pid: replay.get_person_status(pid) for pid in replay.people_states},
+                {uid: (u.detection_count, sorted(u.cameras_seen), u.avg_embedding.tobytes())
+                 for uid, u in replay.unknown_people.get("campus-1", {}).items()})
+    check(live == replayed, f"{tag} the live campus state differs from the CPU replay: "
+          f"{live[0]} against {replayed[0]}")
+
+    window = [r for r in frames_done if w0 <= r["done"] <= w1]
+    dt = w1 - w0
+    per_cam = {cam: sum(r["camera"] == cam for r in window) / dt for cam, _ in cams}
+    lat = [(r["done"] - r["read"]) * 1e3 for r in window]
+    get_ms = [(r["done"] - r["start"] - r.get("faces_s", 0.0)) * 1e3 for r in window]
+    faces_ms = [r.get("faces_s", 0.0) * 1e3 for r in window]
+    check(all(k3.get(size, 0) > 0 for size in (112,) + ATTR_SIZES) and k1 > 0,
+          f"{tag} a kernel was not launched: K3 by size {k3}, K1 {k1}")
+    status = live[0].get("campus-1", {})
+    rec = {"card": card, "cameras": COUNT_CAMERAS, "fps_per_camera": SERVER_FPS,
+           "frame_skip": cfg.campus.frame_skip,
+           "offered_frames_per_s": COUNT_CAMERAS * SERVER_FPS / cfg.campus.frame_skip,
+           "window_s": dt, "frames_per_s": sum(per_cam.values()),
+           "frames_per_s_per_camera": per_cam, "latency_ms_p50": _pct(lat, 50),
+           "latency_ms_p90": _pct(lat, 90), "device_busy_share": busy,
+           "get_ms_p50": _pct(get_ms, 50), "get_ms_p90": _pct(get_ms, 90),
+           "get_ms_alone": alone, "process_faces_ms_p50": _pct(faces_ms, 50),
+           "traced_kernels": {k: v for k, v in kernel_names.items()
+                              if any(h in k for h in HAND_KERNELS)},
+           "first_result_s": first_s, "engines_memory_mib": mem_engines / 2**20,
+           "camera_thread_samples": dict(stacks.most_common(8)),
+           "faces": n_faces, "decisions": dict(decided), "ambiguous_in_replay": ambiguous,
+           "manager_calls": len(calls), "campus": status, "http_200": dict(http_ok),
+           "launches": {"warp_rois": k3, "gallery_top1": k1}}
+    say(f"{tag} {card} | {COUNT_CAMERAS} cameras at {SERVER_FPS:.0f} fps, frame_skip "
+        f"{cfg.campus.frame_skip} ({rec['offered_frames_per_s']:.0f} frames/s offered): each "
+        f"thread built its own FaceAnalysis (together {mem_engines / 2**20:.0f} MiB, the last "
+        f"first result {first_s:.1f} s after the start)")
+    say(f"{tag} {card} | window {dt:.1f} s: {rec['frames_per_s']:.1f} frames/s processed "
+        f"({', '.join(f'{c} {v:.1f}' for c, v in per_cam.items())}), read -> state p50 "
+        f"{rec['latency_ms_p50']:.1f} / p90 {rec['latency_ms_p90']:.1f} ms; a frame's get p50 "
+        f"{rec['get_ms_p50']:.1f} / p90 {rec['get_ms_p90']:.1f} ms (alone "
+        f"{', '.join(f'{t:.1f}' for t in alone)}), process_faces p50 "
+        f"{rec['process_faces_ms_p50']:.1f} ms; device busy {100 * busy:.1f}% of a traced second "
+        f"(its hand kernels {rec['traced_kernels']}); every HTTP route answered 200")
+    n_samples = max(sum(stacks.values()), 1)
+    say(f"{tag} {card} | after the window, the camera threads' innermost frame in the package "
+        f"(3 s of 10 ms samples): " + ", ".join(
+            f"{where} {100 * n / n_samples:.1f}%" for where, n in stacks.most_common(8)))
+    say(f"{tag} {card} | {n_faces} faces {dict(decided)}: each the float64 top-1 of the whole "
+        f"gallery through K1 ({ambiguous} within {REPLAY_EPS} of a threshold); the campus "
+        f"{status} and {len(live[1])} person states and {len(live[2])} unknown clusters equal "
+        f"the CPU replay of {len(calls)} calls; K3 by crop size {k3}, K1 {k1}")
+    return rec
+
+
+def entry_points_check(card: str, photos: list) -> dict:
+    """The four entry points as subprocesses, started together, each with
+    MONGODB_URI set: ``servers.inference_server`` (memory://) answers
+    /api/embeddings/stats with an empty gallery; ``servers.api_server``
+    (memory://) answers {prefix}/health; ``servers.people_count`` (memory://,
+    no camera) answers /api/status; ``servers.training_server``, on a fre://
+    store that store/server.py serves from this process, takes the job this
+    process queued (one employee registered with ``photos``, the 3 poses'
+    encoded bytes), writes its embedding, and this process's gallery then
+    matches the center photo to that employee.  Each exits 0 on SIGTERM."""
+    from facerecognition_infrenceengine_tpu_torch import native
+    from facerecognition_infrenceengine_tpu_torch.api import create_app
+    from facerecognition_infrenceengine_tpu_torch.api.constants import POSES
+    from facerecognition_infrenceengine_tpu_torch.core.config import Config, DBConfig
+    from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore
+    from facerecognition_infrenceengine_tpu_torch.store.server import StoreServer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    store = StoreServer(port=0)
+    store.start()
+    uri = f"fre://127.0.0.1:{store._port}"
+    cfg = Config(db=DBConfig(mongodb_uri=uri))
+    ds = Datastore(cfg)
+    prefix = cfg.api.url_prefix
+    client = create_app(ds, cfg).test_client()
+    company = client.post(f"{prefix}/companies/seed").get_json()["company"]["_id"]
+    fmt = "jpeg" if photos[0][:2] == b"\xff\xd8" else "png"
+    r = client.post(f"{prefix}/employees/register",
+                    data={"employeeId": "W1", "employeeName": "Wire Worker", "companyId": company},
+                    files={pose: (f"{pose}.{fmt}", photos[k], f"image/{fmt}")
+                           for k, pose in enumerate(POSES)})
+    check(r.status_code == 200, f"[entry] register over the wire store: {r.status_code}")
+    ports = {name: free_port() for name in ("inference_server", "api_server", "people_count")}
+    runs = {
+        "inference_server": ("memory://", ["--host", "127.0.0.1", "--port",
+                                           str(ports["inference_server"])]),
+        "api_server": ("memory://", ["--host", "127.0.0.1", "--port", str(ports["api_server"])]),
+        "people_count": ("memory://", ["--host", "127.0.0.1", "--port",
+                                       str(ports["people_count"])]),
+        "training_server": (uri, ["--worker-id", "smoke-child"]),
+    }
+    probes = {
+        "inference_server": f"http://127.0.0.1:{ports['inference_server']}/api/embeddings/stats",
+        "api_server": f"http://127.0.0.1:{ports['api_server']}{prefix}/health",
+        "people_count": f"http://127.0.0.1:{ports['people_count']}/api/status",
+    }
+    workdir = tempfile.mkdtemp(prefix="fre_entry_")  # the servers' log files land here
+    procs, logs, out = {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, (store_uri, argv) in runs.items():
+            env = dict(os.environ, MONGODB_URI=store_uri,
+                       PYTHONPATH=os.pathsep.join(
+                           [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+            logs[name] = open(os.path.join(workdir, f"{name}.txt"), "w")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", f"facerecognition_infrenceengine_tpu_torch.servers.{name}",
+                 *argv], cwd=workdir, env=env, stdout=logs[name], stderr=subprocess.STDOUT)
+        deadline = time.time() + 240
+        pending = dict(probes)
+        job = None
+        while pending or job is None or job["status"] in ("queued", "started"):
+            for name, url in list(pending.items()):
+                try:
+                    st, body = http_json("GET", url, timeout=5)
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    continue
+                out[name] = {"status": st, "body": body,
+                             "answered_after_s": time.perf_counter() - t0}
+                del pending[name]
+            job = ds.embedding_jobs.find_one({"model": "buffalo_l"})
+            if job["status"] not in ("queued", "started") and "training_server" not in out:
+                out["training_server"] = {"job": job["status"], "worker": job.get("workerId"),
+                                          "done_after_s": time.perf_counter() - t0}
+            dead = [n for n, p in procs.items() if p.poll() is not None]
+            check(not dead and time.time() < deadline,
+                  f"[entry] {dead or 'a server'} ended or did not answer in 240 s: "
+                  f"{sorted(pending)} pending, job {job['status']}")
+            time.sleep(0.2)
+        for name, proc in procs.items():
+            proc.send_signal(signal.SIGTERM)
+        for name, proc in procs.items():
+            out.setdefault(name, {})["exit_code"] = proc.wait(timeout=90)
+    finally:
+        for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    with open(os.path.join(workdir, "stdout.txt")) as f:
-        tail = f.read()[-2000:]
+        for f in logs.values():
+            f.close()
+    tails = {}
+    for name in procs:
+        with open(os.path.join(workdir, f"{name}.txt")) as f:
+            tails[name] = f.read()[-2000:]
     shutil.rmtree(workdir, ignore_errors=True)
-    check(st == 200 and stats["total_embeddings"] == 0 and rc == 0,
-          f"the entry point: stats {st} {stats}, exit {rc}: {tail}")
-    say(f"[server] {card} | python -m ...servers.inference_server answered "
-        f"/api/embeddings/stats {up_s:.1f} s after its start and exited 0 on SIGTERM")
-    return {"answered_after_s": up_s, "exit_code": rc}
+    stats = out["inference_server"]
+    check(stats["status"] == 200 and stats["body"]["total_embeddings"] == 0,
+          f"[entry] inference_server stats: {stats}: {tails['inference_server']}")
+    check(out["api_server"]["status"] == 200 and out["api_server"]["body"] == {"status": "ok"},
+          f"[entry] api_server health: {out['api_server']}: {tails['api_server']}")
+    check(out["people_count"]["status"] == 200 and out["people_count"]["body"].get("success"),
+          f"[entry] people_count status: {out['people_count']}: {tails['people_count']}")
+    check(out["training_server"]["job"] == "done"
+          and out["training_server"]["worker"] == "smoke-child",
+          f"[entry] training_server: {out['training_server']}: {tails['training_server']}")
+    for name in procs:
+        check(out[name]["exit_code"] == 0, f"[entry] {name} exited {out[name]['exit_code']} on "
+              f"SIGTERM: {tails[name]}")
+    # the worker process's enrollment, matched by this process's gallery
+    gallery = GalleryManager(ds, cfg, device="cuda")
+    app = FaceAnalysis()
+    app.prepare(ctx_id=0)
+    img = np.ascontiguousarray(native.decode_image(photos[0])[..., ::-1])
+    faces = app.get(img)
+    scores, ids, meta = gallery.match(faces[largest_face(faces)].normed_embedding[None],
+                                      company_id=company)
+    check(ids[0][0] is not None and meta[ids[0][0]]["employeeId"] == "W1",
+          f"[entry] the gallery matched the wire worker's enrollment to {ids[0][0]}")
+    ds.db.close()
+    store.stop()
+    say(f"[entry] {card} | inference_server, api_server and people_count answered after "
+        + ", ".join(f"{out[n]['answered_after_s']:.1f}" for n in probes)
+        + f" s; training_server finished the queued job after "
+        f"{out['training_server']['done_after_s']:.1f} s over {uri} and this process's gallery "
+        f"matched it (score {float(scores[0][0]):.4f}); each exited 0 on SIGTERM")
+    return {n: {k: v for k, v in o.items() if k != "body"} for n, o in out.items()}
 
 
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    faulthandler.dump_traceback_later(600, exit=True)
+    faulthandler.enable(all_threads=True)  # a crash prints every thread's stack
+    faulthandler.dump_traceback_later(1000, exit=True)
     from facerecognition_infrenceengine_tpu_torch.core.config import (
         Config, EngineConfig, ThresholdConfig)
     from facerecognition_infrenceengine_tpu_torch.core.clock import get_current_utc
@@ -2815,7 +3657,32 @@ def main() -> int:
         Config(engine=EngineConfig(stream_transport="yuv420", upload_on_submit=True,
                                    packed_stem_impl="pallas", gallery_dtype="int8",
                                    stream_profile="auto")))
-    entry = entry_point_check(card)
+
+    # ------------------------------------------- enrollment and counting
+    # the enrollment worker and the people counter as their servers run
+    # them, over one memory:// store holding a 2,000-person site (another
+    # company), with Config() as shipped but for duplicate_face (see
+    # ENROLL_DUPLICATE_FACE); then the four entry points
+    cfg_site = Config(thresholds=ThresholdConfig(duplicate_face=ENROLL_DUPLICATE_FACE))
+    site_ds = Datastore(cfg_site)
+    site = np.random.default_rng(31).normal(size=(SERVER_PERSONS, 512)).astype(np.float32)
+    write_people(site_ds, ObjectId(), site / np.linalg.norm(site, axis=1, keepdims=True), "P")
+    site_gallery = GalleryManager(site_ds, cfg_site, sync_interval_s=cfg_site.sync.counting_sync_s)
+    t0 = time.perf_counter()
+    kiosk_app = FaceAnalysis(name=cfg_site.worker.model_name, cfg=cfg_site.engine)
+    kiosk_app.prepare(ctx_id=0)
+    say(f"[enroll] FaceAnalysis({cfg_site.worker.model_name}) with {kiosk_app.allowed_modules} "
+        f"{cfg_site.engine.dtype} built in {time.perf_counter() - t0:.2f} s; site of "
+        f"{SERVER_PERSONS} persons loaded")
+    enroll, kiosk_bytes = enroll_phase(torch, card, site_ds, cfg_site, site_gallery, kiosk_app)
+    site_gallery.start_sync()
+    try:
+        count = count_phase(torch, card, requests[0], site_ds, cfg_site, site_gallery,
+                            ObjectId(), kiosk_app)
+    finally:
+        site_gallery.stop_sync()
+    del kiosk_app
+    entry = entry_points_check(card, kiosk_bytes[0])
     say(json.dumps({"variants": variants}))
     say(json.dumps({"path": {"card": card, "requests": REQUESTS, "frames_per_request": FRAMES,
                              "request_ms": request_ms, "faces_per_request": faces_per_request,
@@ -2852,7 +3719,10 @@ def main() -> int:
                                      "delta_store_persons": DELTA_ROWS,
                                      "force_sync_ms": sync_ms, "launches": g_launches}}))
     for run in server_runs:
-        say(json.dumps({"server_path": dict(run, entry_point=entry)}))
+        say(json.dumps({"server_path": dict(run, entry_point=entry["inference_server"])}))
+    say(json.dumps({"enroll_path": enroll}))
+    say(json.dumps({"count_path": count}))
+    say(json.dumps({"entry_points": entry}))
     for key, t in k3.items():
         say(f"[times] {card} | K3 {'packed 112' if key == 'packed' else key} on the atlas: "
             f"{t['ms']:.4f} ms, device {t['kernel_device_ms']:.4f} (the direct read; staged "
@@ -2864,7 +3734,16 @@ def main() -> int:
             f"{t['step_ms_unfused']:.4f} unfused, atlas build {t['atlas_ms']:.4f}; path "
             f"{t['path_ms']:.4f} ms (bound {t['path_bound_ms'] * 1e3:.2f} us); plain "
             f"{t['plain_ms']:.3f} ms")
+    # the enrollment and counting phases' launches join the paths' counts
+    for phase in (enroll, count):
+        by_size, k1 = phase["launches"]["warp_rois"], phase["launches"]["gallery_top1"]
+        for k in kernels:
+            if k["name"].startswith("warp_rois") and not k.get("packed"):
+                k["launches"] += by_size.get(k["out_size"], 0)
+            elif k["name"] == "gallery_top1":
+                k["launches"] += k1
     say(json.dumps({"kernels": kernels}))
+    say(f"[done] {card} | the script took {time.perf_counter() - t_script:.1f} s")
     say(card_line())
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

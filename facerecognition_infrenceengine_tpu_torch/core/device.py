@@ -4,7 +4,10 @@ from __future__ import annotations
 
 import torch
 
+from .metrics import on_device
 
+
+@on_device
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``cuda``.  A CUDA device with no card raises: nothing
     falls back to the CPU unless the caller asks for it.  A CUDA device with
@@ -30,6 +33,7 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+@on_device
 def bind_thread(device) -> None:
     """Make ``device`` (an engine's or a gallery's resolved device) the
     calling thread's current CUDA device: a thread PyTorch has not seen

@@ -17,9 +17,11 @@ Usage:
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import deque
+from contextlib import contextmanager
 from typing import Dict
 
 _LOCK = threading.Lock()
@@ -160,12 +162,84 @@ def reset() -> None:
         _timers.clear()
 
 
+# ------------------------------------------------------------- device gate
+# torch.profiler's CUDA tracing can corrupt the process's heap when a trace
+# starts or stops while another thread is calling into CUDA: on an H100
+# host (torch 2.11) a stop beside threads serving FaceAnalysis.get now and
+# then aborted ("double free or corruption") or segfaulted; trace_stress.py
+# counts it.  So every entry point of the port that calls into the card runs
+# inside ``device_work()``, and a trace starts and stops with the gate shut:
+# no thread inside, none let in, the card idle.  The sections are leaves:
+# inside one, a thread neither takes a lock another thread may hold while it
+# waits at the gate, nor waits for another thread, so shutting the gate
+# cannot deadlock.  A thread already inside passes straight through again.
+_gate = threading.Condition()
+_gate_inside = 0
+_gate_shut = False
+_gate_depth = threading.local()
+
+
+@contextmanager
+def device_work():
+    """Run the body as device work: it waits while a trace starts or stops."""
+    global _gate_inside
+    depth = getattr(_gate_depth, "n", 0)
+    if not depth:
+        with _gate:
+            while _gate_shut:
+                _gate.wait()
+            _gate_inside += 1
+    _gate_depth.n = depth + 1
+    try:
+        yield
+    finally:
+        _gate_depth.n = depth
+        if not depth:
+            with _gate:
+                _gate_inside -= 1
+                if not _gate_inside:
+                    _gate.notify_all()
+
+
+def on_device(fn):
+    """Decorator: ``fn`` runs inside :func:`device_work`."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with device_work():
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+@contextmanager
+def _device_alone():
+    """Shut the gate, wait for the threads inside to leave and for every
+    card the process uses to finish its work; reopen it after the body."""
+    global _gate_shut
+    import torch
+
+    with _gate:
+        _gate_shut = True  # one closer: the trace thread
+        while _gate_inside:
+            _gate.wait()
+    try:
+        if torch.cuda.is_initialized():
+            for i in range(torch.cuda.device_count()):
+                if torch.cuda.memory_reserved(i):  # no context made on the others
+                    torch.cuda.synchronize(i)
+        yield
+    finally:
+        with _gate:
+            _gate_shut = False
+            _gate.notify_all()
+
+
 # ----------------------------------------------------------- torch.profiler
 # torch.profiler must be started and stopped on one thread (stopping it from
 # another one crashes the process), while the control API starts and stops a
 # trace from whichever request threads serve /api/profiler/start and /stop:
-# every profiler call runs on one worker thread of this module.  The trace
-# holds the device's kernels whichever thread launches them.
+# every profiler call runs on one worker thread of this module, with the
+# device gate shut.  The trace holds the device's kernels whichever thread
+# launches them.
 _trace_lock = threading.Lock()
 _trace_dir = None
 _trace_prof = None
@@ -194,7 +268,8 @@ def _start(logdir: str) -> bool:
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
-    prof.start()
+    with _device_alone():
+        prof.start()
     _trace_dir, _trace_prof = logdir, prof
     return True
 
@@ -207,7 +282,8 @@ def _stop() -> str | None:
         return None
     prof, out = _trace_prof, _trace_dir
     _trace_dir = _trace_prof = None
-    prof.stop()
+    with _device_alone():
+        prof.stop()
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         out, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))

@@ -87,6 +87,7 @@ class _CompanySnapshot:
 
     full_builds = 0  # O(delta) sync tests pin this
 
+    @metrics.on_device
     def __init__(self, ids, metadata, matrix, embed_dim: int, block: int,
                  dtype: str = "float32", device=None):
         if dtype not in _DTYPES and dtype != "int8":
@@ -129,6 +130,7 @@ class _CompanySnapshot:
         snap.size = size
         return snap
 
+    @metrics.on_device
     def apply_delta(self, updates: dict, meta_updates: dict, removals,
                     get_vec) -> "_CompanySnapshot | None":
         """O(delta) evolution: scatter the changed rows into a copy of the
@@ -204,6 +206,7 @@ class _CompanySnapshot:
         return _CompanySnapshot._evolved(self, ids, row_of, metadata, matrix, valid, size)
 
     @classmethod
+    @metrics.on_device
     def from_device_matrix(cls, device_matrix: torch.Tensor, size: int, dtype: str,
                            int8_scale=None, ids=None, metadata=None, embed_dim: int = 512,
                            block: int = 1024) -> "_CompanySnapshot":
@@ -231,6 +234,7 @@ class _CompanySnapshot:
             return self.device_matrix
         return self.device_matrix.float() * self.int8_scale
 
+    @metrics.on_device
     @torch.inference_mode()
     def match(self, query_embeddings: np.ndarray, k: int = 1):
         """[B, D] normalized queries -> (scores [B, k], ids [B, k] of str|None)."""

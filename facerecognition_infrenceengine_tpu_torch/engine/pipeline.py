@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..core import metrics
 from ..core.config import EngineConfig, get_config
 from ..core.device import resolve_device
 from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, scrfd
@@ -126,6 +127,7 @@ class FaceEngine:
     first ``attributes`` call.
     """
 
+    @metrics.on_device
     def __init__(self, cfg: EngineConfig | None = None, det_variables=None, rec_variables=None,
                  det_arch: str = "det_10g", rec_arch: str = "r50", seed: int = 0, device=None):
         self.cfg = cfg or get_config().engine
@@ -321,18 +323,21 @@ class FaceEngine:
         return self._flatten_fused_outputs(self._fused_yuv_impl(frames_y24, det_threshold))
 
     # ------------------------------------------------------------- host API
+    @metrics.on_device
     def _to_device(self, array) -> torch.Tensor:
         """A host array, or a tensor already uploaded, on the engine's device."""
         if isinstance(array, torch.Tensor):
             return array.to(self.device)
         return torch.as_tensor(np.asarray(array)).to(self.device)
 
+    @metrics.on_device
     @torch.inference_mode()
     def detect(self, frames_u8, det_threshold: float = 0.3) -> DetectionBatch:
         """frames_u8: [B, H, W, 3] RGB uint8 at the det canvas size."""
         outs = self._detect_impl(self._to_device(frames_u8), det_threshold)
         return DetectionBatch(*(o.cpu().numpy() for o in outs))
 
+    @metrics.on_device
     @torch.inference_mode()
     def embed_faces(self, frames_u8, frame_idx, kps) -> np.ndarray:
         """Embed M faces of a batch of frames.
@@ -352,6 +357,7 @@ class FaceEngine:
                                self._to_device(pad_kps))
         return emb.cpu().numpy()[:m]
 
+    @metrics.on_device
     @torch.inference_mode()
     def attributes(self, frames_u8, frame_idx, bboxes):
         """Gender [M] int32, age [M] float32 and landmark_2d_106 [M, 106, 2]
@@ -371,6 +377,7 @@ class FaceEngine:
                                      self._to_device(pad_boxes))
         return tuple(o.cpu().numpy()[:m] for o in outs)
 
+    @metrics.on_device
     @torch.inference_mode()
     def embed_crops(self, crops_u8) -> np.ndarray:
         """Embed pre-aligned 112x112 crops [M, 112, 112, 3]."""
@@ -381,17 +388,20 @@ class FaceEngine:
         pad[:m] = crops_u8
         return self._embed_crops_impl(self._to_device(pad)).cpu().numpy()[:m]
 
+    @metrics.on_device
     @torch.inference_mode()
     def detect_align_embed(self, frames_u8, det_threshold: float = 0.3):
         """Fused fixed-capacity variant: device tensors (boxes, scores, kps,
         valid, emb)."""
         return self._fused_impl(self._to_device(frames_u8), det_threshold)
 
+    @metrics.on_device
     @torch.inference_mode()
     def detect_align_embed_flat(self, frames_u8, det_threshold: float = 0.3) -> torch.Tensor:
         """Serving variant: one [B, F, 528] device tensor."""
         return self._fused_flat_impl(self._to_device(frames_u8), det_threshold)
 
+    @metrics.on_device
     def recalibrate_int8(self, crops_u8=None):
         """(Re)calibrate the int8 embedder's activation scales.  The int8
         PTQ embedder (``embed_int8``, ROADMAP Queue 1 item 4) is not ported,
@@ -409,12 +419,14 @@ class FaceEngine:
         """Host-side s2d4 pack: [B, H, W, 3] u8 -> [B, H/4, W/4, 48]."""
         return np.stack([native.pack_s2d4(frame) for frame in np.asarray(frames_u8)])
 
+    @metrics.on_device
     @torch.inference_mode()
     def detect_align_embed_packed(self, frames_p4_u8, det_threshold: float = 0.3):
         """Fused program on s2d4-packed u8 frames [B, H/4, W/4, 48]: device
         tensors (boxes, scores, kps, valid, emb)."""
         return self._fused_packed_impl(self._to_device(frames_p4_u8), det_threshold)
 
+    @metrics.on_device
     @torch.inference_mode()
     def detect_align_embed_yuv420(self, frames_y24_u8, det_threshold: float = 0.3):
         """Fused program on packed-yuv420 frames [B, rows <= H/4, W/4, 24]
@@ -422,6 +434,7 @@ class FaceEngine:
         ``detect_align_embed`` up to the 4:2:0 chroma subsampling."""
         return self._fused_yuv_impl(self._to_device(frames_y24_u8), det_threshold)
 
+    @metrics.on_device
     @torch.inference_mode()
     def detect_align_embed_yuv420_flat(self, frames_y24_u8,
                                        det_threshold: float = 0.3) -> torch.Tensor:

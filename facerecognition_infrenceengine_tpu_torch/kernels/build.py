@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +77,10 @@ _JPEG_PROBE = "#include <cstdio>\n#include <jpeglib.h>\nint main() { jpeg_std_er
 _lib = None
 _host_lib = None
 _jpeg_flags = None
+# one build at a time within the process: threads that first launch together
+# (camera threads, executor threads) would otherwise compile to one temporary
+# name, and all but the first would find it moved away
+_build_lock = threading.RLock()
 build_info: dict = {}  # command, seconds and ptxas report of this process's build
 
 
@@ -128,18 +133,23 @@ def _compile(out: str, command, what: str):
 def build() -> str:
     """Compile ``csrc/*.cu`` unless this source hash is already built;
     returns the library path."""
-    out = library_path()
-    if not os.path.exists(out):
-        cmd, seconds, report = _compile(
-            out, lambda tmp: [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()], "nvcc")
-        build_info.update(command=cmd, seconds=seconds, ptxas=report)
-    return out
+    with _build_lock:
+        out = library_path()
+        if not os.path.exists(out):
+            cmd, seconds, report = _compile(
+                out, lambda tmp: [nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()], "nvcc")
+            build_info.update(command=cmd, seconds=seconds, ptxas=report)
+        return out
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
-    if _lib is None:
+    if _lib is not None:
+        return _lib
+    with _build_lock:
+        if _lib is not None:
+            return _lib
         loaded = ctypes.CDLL(build())
         for name, argtypes in SIGNATURES.items():
             fn = getattr(loaded, name)
@@ -183,20 +193,25 @@ def host_library_path() -> str:
 def build_host() -> str:
     """Compile ``csrc/imagecodec.cc`` with the host compiler unless this
     source hash is already built; returns the library path."""
-    out = host_library_path()
-    if not os.path.exists(out):
-        flags = jpeg_flags()
-        cmd, seconds, _ = _compile(
-            out, lambda tmp: [cxx(), *CXX_FLAGS, *flags[:1], HOST_SOURCE, *flags[1:],
-                              "-o", tmp], "the host imaging build")
-        build_info.update(host_command=cmd, host_seconds=seconds)
-    return out
+    with _build_lock:
+        out = host_library_path()
+        if not os.path.exists(out):
+            flags = jpeg_flags()
+            cmd, seconds, _ = _compile(
+                out, lambda tmp: [cxx(), *CXX_FLAGS, *flags[:1], HOST_SOURCE, *flags[1:],
+                                  "-o", tmp], "the host imaging build")
+            build_info.update(host_command=cmd, host_seconds=seconds)
+        return out
 
 
 def host_lib() -> ctypes.CDLL:
     """The loaded host imaging library, built first if needed."""
     global _host_lib
-    if _host_lib is None:
+    if _host_lib is not None:
+        return _host_lib
+    with _build_lock:
+        if _host_lib is not None:
+            return _host_lib
         loaded = ctypes.CDLL(build_host())
         sigs = dict(HOST_SIGNATURES)
         if loaded.fre_have_jpeg():

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..core import metrics
 from ..core.config import EngineConfig, get_config
 from ..core.device import resolve_device
 from ..engine.pipeline import _YUV_BLACK, FaceEngine, bucket, yuv_black
@@ -109,6 +110,7 @@ class FaceAnalysis:
         return self.get_batch([frame], max_num=max_num)[0]
 
     @staticmethod
+    @metrics.on_device
     def _faces_from_fused_flat(flat, n: int, max_num: int) -> list:
         """Decode the packed [B, F, 528] output (boxes | score | kps | valid |
         emb) of the first ``n`` frames."""
@@ -166,6 +168,7 @@ class FaceAnalysis:
         return all(self._is_pack(f) or min(dh / f.shape[0], dw / f.shape[1]) == 1.0
                    for f in frames)
 
+    @metrics.on_device
     def encode_frame(self, frame_bgr: np.ndarray) -> np.ndarray:
         """One BGR camera frame -> its yuv420 s2d4 content rows
         [ceil(h/4), W/4, 24]: the first rows of ``native.letterbox_yuv420_
@@ -229,6 +232,7 @@ class FaceAnalysis:
                 if self._is_pack(f) else f for f in frames]
 
     # ------------------------------------------------------------ batches
+    @metrics.on_device
     def get_batch_async(self, frames: list, max_num: int = 0):
         """Dispatch a batch without waiting for the card -> ``resolve()``
         returning per-frame lists of Face.  On the fused paths (yuv420, and
@@ -255,6 +259,7 @@ class FaceAnalysis:
         results = self.get_batch(frames, max_num=max_num)
         return lambda: results
 
+    @metrics.on_device
     def get_batch(self, frames: list, max_num: int = 0) -> list:
         """Batched BGR frames (or yuv420 packs from ``encode_frame``) ->
         per-frame lists of Face."""

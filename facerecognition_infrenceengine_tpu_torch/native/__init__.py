@@ -18,8 +18,8 @@ use.  A failed build raises with the compiler's output; nothing falls back
 to numpy (``native/plain.py`` holds the plain versions the tests compare
 against).  The JPEG codec is compiled in only where libjpeg is found:
 without it the JPEG functions raise a ``RuntimeError`` naming libjpeg, and
-``decode_image`` decodes other formats through PIL where PIL imports, as
-the reference does.
+``decode_image`` decodes every format, JPEG too, through PIL where PIL
+imports, as the reference does where its native library is missing.
 
 The letterbox scale is the C++ float32 (640/1920 gives 0.33333334, not
 1/3); callers map coordinates back with that same value.
@@ -103,8 +103,8 @@ def decode_jpeg(data: bytes):
 def decode_image(data: bytes):
     """Any supported image format -> RGB uint8, or None.  JPEG goes through
     the native codec (which hands other formats to PIL); without libjpeg,
-    non-JPEG data still decodes through PIL and JPEG data raises."""
-    if have_jpeg() or data[:2] == b"\xff\xd8":
+    every format decodes through PIL (None where PIL does not import)."""
+    if have_jpeg():
         return decode_jpeg(data)
     return _decode_pil(data)
 

@@ -1,5 +1,7 @@
 """Server entry points plus the self-served ops dashboards they expose at
-``GET /``: the port's live recognition server (``inference_server``)."""
+``GET /``: the port's live recognition server (``inference_server``), the
+REST API (``api_server``), the enrollment worker (``training_server``) and
+the campus people counter (``people_count``)."""
 
 from __future__ import annotations
 

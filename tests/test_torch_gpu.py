@@ -615,3 +615,75 @@ def test_get_batch_async_on_uploaded_packs_makes_no_synchronizing_call(cuda):
     for g, w in zip(sum(got, []), sum(want, [])):
         np.testing.assert_array_equal(g.bbox, w.bbox)
         np.testing.assert_array_equal(g.normed_embedding, w.normed_embedding)
+
+
+def test_enrollment_and_counting_threads_bind_to_the_engines_card(cuda, monkeypatch):
+    """The enrollment worker's executor threads and a counting camera thread
+    run on their FaceAnalysis's card (the last one): each binds to it before
+    it calls ``get``."""
+    import time
+
+    import cv2
+
+    from facerecognition_infrenceengine_tpu_torch.api import create_app
+    from facerecognition_infrenceengine_tpu_torch.core.config import Config
+    from facerecognition_infrenceengine_tpu_torch.domain.campus import (
+        CameraType, CampusPeopleManager)
+    from facerecognition_infrenceengine_tpu_torch.domain.counting import CameraStreamManager
+    from facerecognition_infrenceengine_tpu_torch.domain.enrollment import FaceEmbeddingWorker
+    from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import (
+        FakeFaceAnalysis, encode_fake_face)
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore
+
+    card = torch.device("cuda", torch.cuda.device_count() - 1)
+
+    class Probe(FakeFaceAnalysis):
+        device = card
+        seen = []
+
+        def get(self, frame, max_num=0):
+            self.seen.append(torch.cuda.current_device())
+            return super().get(frame, max_num)
+
+    cfg = Config()
+    ds = Datastore(cfg)
+    client = create_app(ds, cfg).test_client()
+    cid = client.post("/bharatlytics/v1/companies/seed").get_json()["company"]["_id"]
+    files = {pose: (f"{pose}.png", cv2.imencode(".png", encode_fake_face(7, j))[1].tobytes(),
+                    "image/png") for pose, j in (("center", 0.0), ("left", 0.1), ("right", 0.2))}
+    r = client.post("/bharatlytics/v1/employees/register",
+                    data={"employeeId": "E1", "employeeName": "P", "companyId": cid}, files=files)
+    assert r.status_code == 200
+    worker = FaceEmbeddingWorker(ds, cfg, detector=Probe())
+    assert worker.process_available_jobs() == 1
+    worker.executor.shutdown(wait=True)
+    assert ds.employee_info.find_one({"employeeId": "E1"})[
+        "employeeEmbeddings"]["buffalo_l"]["status"] == "done"
+    assert len(Probe.seen) == 3 and set(Probe.seen) == {card.index}
+
+    class Capture:  # three frames, then the camera stops answering
+        def __init__(self, source):
+            self.frames = [encode_fake_face(7, 0.0)] * 4
+
+        def isOpened(self):
+            return True
+
+        def read(self):
+            return (True, self.frames.pop()) if self.frames else (False, None)
+
+        def release(self):
+            pass
+
+    monkeypatch.setattr(cv2, "VideoCapture", Capture)
+    Probe.seen = []
+    cfg.campus.max_camera_errors = 1
+    manager = CampusPeopleManager(ds, cfg, start_background=False)
+    streams = CameraStreamManager(GalleryManager(ds, cfg, device=card), manager,
+                                  face_app=Probe(), cfg=cfg)
+    streams.start_camera("cam0", 0, "campus", CameraType.ENTRY)
+    thread = streams.camera_threads["cam0"]
+    thread.join(timeout=60)
+    assert not thread.is_alive()
+    streams.stop_all()
+    assert len(Probe.seen) == 2 and set(Probe.seen) == {card.index}

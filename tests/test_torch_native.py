@@ -6,7 +6,8 @@ x1/3 and x1/2, up x2 and identity; the letterbox's geometry and its float32
 scale; the rasterizer, clipping included; the s2d4 / yuv420 packers; the
 letterbox-then-pack at scales other than 1.  The JPEG cases skip where the
 library was built without libjpeg.  The last test checks that the port's
-package and chip_smoke.py import neither JAX nor the reference package.
+package, chip_smoke.py and trace_stress.py import neither JAX nor the
+reference package.
 """
 
 import io
@@ -228,7 +229,9 @@ def test_decode_cap_applies_to_pil_formats():
 
 def test_build_without_libjpeg_raises_on_jpeg_only(monkeypatch):
     """A host without libjpeg: the rest of the codec builds and runs, the
-    JPEG functions raise naming libjpeg, other formats decode through PIL."""
+    JPEG functions raise naming libjpeg, and decode_image decodes every
+    format through PIL, JPEG too (None for data PIL cannot read), as the
+    reference's decode does where its native library is missing."""
     from PIL import Image
 
     monkeypatch.setattr(build, "_jpeg_flags", [])
@@ -238,14 +241,44 @@ def test_build_without_libjpeg_raises_on_jpeg_only(monkeypatch):
         native.decode_jpeg(b"\xff\xd8\xff\xe0")
     with pytest.raises(RuntimeError, match="libjpeg"):
         native.encode_jpeg(_noise(1, 8, 8))
-    with pytest.raises(RuntimeError, match="libjpeg"):
-        native.decode_image(b"\xff\xd8\xff\xe0")
+    assert native.decode_image(b"\xff\xd8\xff\xe0") is None
+    jpg = io.BytesIO()
+    Image.fromarray(_noise(6, 24, 32)).save(jpg, "JPEG", quality=90)
+    np.testing.assert_array_equal(native.decode_image(jpg.getvalue()),
+                                  np.asarray(Image.open(io.BytesIO(jpg.getvalue())).convert("RGB")))
     buf = io.BytesIO()
     Image.fromarray(_noise(4, 12, 16)).save(buf, "PNG")
     np.testing.assert_array_equal(native.decode_image(buf.getvalue()), _noise(4, 12, 16))
     img = _noise(5, 720, 1280)
     np.testing.assert_array_equal(native.letterbox(img, 640, 640)[0],
                                   ref.letterbox(img, 640, 640)[0])
+
+
+def test_threads_that_first_use_the_codec_together_build_it_once(monkeypatch, tmp_path):
+    """Camera and executor threads reach the codec together on a fresh
+    checkout: one compiles it and every thread gets the loaded library
+    (before, all but the first found the shared temporary name moved away)."""
+    import threading
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_host_lib", None)
+    start, got, errors = threading.Barrier(4), [], []
+
+    def first_use():
+        start.wait()
+        try:
+            got.append(build.host_lib())
+        except Exception as exc:  # noqa: BLE001 - the test reports it
+            errors.append(exc)
+
+    threads = [threading.Thread(target=first_use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(got) == 4 and all(lib is got[0] for lib in got)
+    assert [p.name for p in tmp_path.iterdir()] == [os.path.basename(build.host_library_path())]
 
 
 def test_failed_host_build_raises_with_the_compiler_output(monkeypatch):
@@ -259,7 +292,7 @@ def test_failed_host_build_raises_with_the_compiler_output(monkeypatch):
 def test_port_imports_neither_jax_nor_the_reference():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     pkg = os.path.join(root, "facerecognition_infrenceengine_tpu_torch")
-    files = [os.path.join(root, "chip_smoke.py")] + [
+    files = [os.path.join(root, "chip_smoke.py"), os.path.join(root, "trace_stress.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
     bad = re.compile(r"^\s*(import|from)\s+(jax|flax|facerecognition_infrenceengine_tpu)\b(?!_torch)")
     offending = []
@@ -270,4 +303,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert len(files) > 20 and not offending, offending
     scanned = {os.path.relpath(f, pkg) for f in files}
     assert {"engine/microbatch.py", "domain/cameras.py", "web/framework.py", "web/serving.py",
-            "servers/inference_server.py"} <= scanned
+            "servers/inference_server.py", "api/__init__.py", "api/company.py",
+            "api/constants.py", "api/docmodels.py", "api/embeddings.py", "api/employee.py",
+            "api/entity.py", "api/utils.py", "api/visitor.py", "domain/campus.py",
+            "domain/counting.py", "domain/enrollment.py", "domain/passes.py", "domain/qr.py",
+            "web/ui/__init__.py", "servers/api_server.py", "servers/people_count.py",
+            "servers/training_server.py"} <= scanned

@@ -13,15 +13,29 @@ they call, the names of its imports they read -- is kept, recursively; the
 rest of the file, its imports of modules the port does not have among them,
 is dropped before it runs.
 
+Several files can go into one module.  A module-level name that a file
+binds and an earlier file in the same module bound too (each file's own
+``app`` and ``client`` fixtures, say) is renamed throughout the later file
+(``app`` -> ``app__<file stem>``, the fixture and every parameter and name
+that reads it), so each file's cases keep their own fixtures and helpers.
+
 ``cpu_by_default(monkeypatch)`` makes the port's ``resolve_device(None)``
 the CPU for one test: reference cases build ``GalleryManager(ds, cfg)`` and
 ``FaceAnalysis(cfg=...)`` with no device, which on the port means ``cuda``.
+
+``store_cfg`` is the port's twin of the conftest fixture of that name: the
+port's ``Config``, over the embedded store and (slow tier) the port's
+``fre://`` wire server.  A test module that imports it uses it in place of
+the conftest one, whose ``Config`` is the reference's.
 """
 
 import ast
+import dataclasses
 import os
 import re
 import sys
+
+import pytest
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 _REFERENCE = re.compile(r"\bfacerecognition_infrenceengine_tpu\b(?!_torch)")
@@ -95,13 +109,57 @@ def _select(tree: ast.Module, only) -> ast.Module:
     return ast.fix_missing_locations(ast.Module(body=body, type_ignores=[]))
 
 
+class _Rename(ast.NodeTransformer):
+    """Renames the identifiers ``names`` maps, wherever they appear as one."""
+
+    def __init__(self, names: dict):
+        self.names = names
+
+    def visit_Name(self, node):
+        node.id = self.names.get(node.id, node.id)
+        return node
+
+    def visit_arg(self, node):
+        node.arg = self.names.get(node.arg, node.arg)
+        return node
+
+    def _visit_def(self, node):
+        node.name = self.names.get(node.name, node.name)
+        return self.generic_visit(node)
+
+    visit_FunctionDef = visit_AsyncFunctionDef = visit_ClassDef = _visit_def
+
+
 def exec_port_cases(name: str, namespace: dict, only=None) -> None:
     path = os.path.join(TESTS, name)
-    source = port_source(name)
-    if only is None:
-        exec(compile(source, path, "exec"), namespace)
+    tree = ast.parse(port_source(name), path)
+    if only is not None:
+        tree = _select(tree, only)
+    bound = set().union(*(_bound(n) for n in tree.body))
+    earlier = namespace.setdefault("_port_case_names", set())
+    clash = {n: f"{n}__{os.path.splitext(name)[0]}" for n in bound & earlier}
+    if clash:
+        tree = ast.fix_missing_locations(_Rename(clash).visit(tree))
+    earlier |= bound - set(clash)
+    exec(compile(tree, path, "exec"), namespace)
+
+
+@pytest.fixture(params=["embedded", pytest.param("fre", marks=pytest.mark.slow)])
+def store_cfg(request):
+    from facerecognition_infrenceengine_tpu_torch.core.config import Config
+    from facerecognition_infrenceengine_tpu_torch.store.server import StoreServer
+
+    cfg = Config()
+    if request.param == "embedded":
+        yield cfg
         return
-    exec(compile(_select(ast.parse(source, path), only), path, "exec"), namespace)
+    srv = StoreServer(port=0)
+    srv.start()
+    try:
+        yield dataclasses.replace(cfg, db=dataclasses.replace(
+            cfg.db, mongodb_uri=f"fre://127.0.0.1:{srv._port}"))
+    finally:
+        srv.stop()
 
 
 def cpu_by_default(monkeypatch) -> None:
