@@ -130,7 +130,26 @@ Phases, one flushed line each:
    them), timed in turns, beside atlas_ms.  K1's wrapper is also timed at
    B = 1 with its scratch cache emptied before every call (`ms_uncached`):
    the per-call allocations and library lookups the cache removes.
-11. server (after the kernels' own traces, which an earlier trace has been
+11. [int8] (after the kernels' own traces): the opt-in scale modes at
+   buffalo_l's full width (det_10g + r50, bf16, 640x640, max_faces 32,
+   pre_nms_topk 512), each variant FaceAnalysis.get_batch + match_faces
+   (K3 at 112, K1 f32 on the phase's gallery: variant a's request 1 plus
+   seeded distractors) on the rgb path's 3 requests: a embed_int8, b
+   det_int8, c both, d packed_stem, e stream_transport="yuv420" with
+   packed_stem_impl="xla" (K3 on the packed atlas).  Gates: int8_conv2d_nhwc
+   equals the float64 conv bit for bit on the path's own int8 inputs (one
+   point of each IResNet stage; det_10g's stem1, stem2 and a downsample,
+   captured from a request of c); a and c keep min cosine >= 0.98 against
+   the float engine's bf16 embeddings of its own crops; b and c keep its
+   valid slots, scores within 5e-2; the f32 packed stems equal the
+   unpacked stem within rtol 1e-3 / atol 2e-3 (TF32 off); recalibrate_int8
+   on 8 of the path's crops changes the scales and the next request's
+   embeddings.  Printed a variant: build s, request wall ms, device ms a
+   request (torch.profiler), peak memory, _int_mm calls a request and the
+   int8 passes' device ms (ops/int8_conv.py's profiler ranges), the
+   detections against the float engine's (box movement not gated), the
+   calibrations' ms; torch._int_mm's shape rules on the card.
+12. server (after the kernels' own traces, which an earlier trace has been
    seen to leave empty): the live recognition server, twice, over one
    memory:// store of about 2,000 employees behind a GalleryManager with its
    sync thread running.  First the batch witness: request 1's 8 frames
@@ -188,7 +207,7 @@ Phases, one flushed line each:
    ``python -m facerecognition_infrenceengine_tpu_torch.servers.
    inference_server`` in a subprocess (MONGODB_URI=memory://) answers
    /api/embeddings/stats and exits 0 on SIGTERM.
-12. the card line, then {"ok": true, "device": ...} as the last line.
+13. the card line, then {"ok": true, "device": ...} as the last line.
 
     python3 chip_smoke.py --profile
 
@@ -252,6 +271,15 @@ STEM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/stem.cu"
 HAND_KERNELS = ("warp_windows_kernel", "top1_f32_kernel", "top1_bf16_kernel", "top1_int8_kernel",
                 "fused_stem")
 INT8_MARGIN = 5e-3  # f32 top-1 lead over the runner-up above which int8 must agree
+# the [int8] phase: the opt-in scale modes (models/quant.py, models/packed_stem.py)
+INT8_VARIANTS = (("a", dict(embed_int8=True)), ("b", dict(det_int8=True)),
+                 ("c", dict(embed_int8=True, det_int8=True)), ("d", dict(packed_stem=True)),
+                 ("e", dict(stream_transport="yuv420", packed_stem_impl="xla")))
+INT8_EXACT_POINTS = ("IBasicBlock_0/Conv_2", "IBasicBlock_3/Conv_1", "IBasicBlock_7/Conv_2",
+                     "IBasicBlock_23/Conv_0", "stem1", "stem2", "layer2_b0/downsample")
+INT8_COS_MIN = 0.98        # int8 against float embeddings (tests/test_quant.py:51, :73)
+INT8_SCORE_TOL = 5e-2      # det_int8 scores against float (tests/test_quant.py:153-154)
+PACKED_RTOL, PACKED_ATOL = 1e-3, 2e-3  # packed stems, f32 (tests/test_packed_stem.py:158-160)
 SERVER_PERSONS = 2_000          # the server phase's store (its sync thread audits every id)
 SERVER_CAMERAS = 4
 SERVER_FPS = 30.0               # each stand-in camera's frame rate
@@ -2276,6 +2304,433 @@ def entry_points_check(card: str, photos: list) -> dict:
     return {n: {k: v for k, v in o.items() if k != "body"} for n, o in out.items()}
 
 
+def range_trace(torch, fn, iters: int = 2) -> tuple:
+    """torch.profiler over iters calls of fn after a dropped warm-up ->
+    (device busy ms a call, {range: device ms a call}) for the int8 passes'
+    ranges (ops/int8_conv.py's ``int8.*``).  A trace with no device time
+    is taken again, four times at most."""
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.5)
+        with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        rows = prof.key_averages()
+        cuda = torch.autograd.DeviceType.CUDA
+        busy = sum(e.self_device_time_total for e in rows if e.device_type == cuda
+                   and not e.key.startswith("ProfilerStep")) / 1e3 / iters
+        if busy > 0:
+            ranges = {}
+            for e in rows:
+                if e.key.startswith("int8."):
+                    us = (e.device_time_total if e.device_type != cuda
+                          else e.self_device_time_total)
+                    ranges[e.key] = max(ranges.get(e.key, 0.0), us / 1e3 / iters)
+            return busy, ranges
+    fail("torch.profiler recorded no device time for an [int8] request")
+
+
+def int_mm_probe(torch, dev) -> dict:
+    """torch._int_mm's shape rules on this card (which M (rows), K and N it
+    takes), its rate at one IResNet-50 GEMM shape, the right operand row-
+    or column-major, beside a bf16 mm of the same shape, and
+    int8_conv2d_nhwc at block 0's widest conv with its im2col copying words
+    or bytes."""
+    out = {}
+    for m, k, n, col in ((16, 32, 32, False), (17, 32, 32, False), (24, 32, 32, False),
+                         (40, 32, 32, False), (56, 32, 32, False), (32, 27, 32, False),
+                         (32, 32, 28, False), (32, 32, 32, False), (32, 32, 32, True)):
+        a = torch.ones((m, k), dtype=torch.int8, device=dev)
+        b = torch.ones((k, n), dtype=torch.int8, device=dev)
+        if col:
+            b = b.t().contiguous().t()
+        try:
+            ok = bool((torch._int_mm(a, b) == k).all())
+            out[f"M{m} K{k} N{n}{' colB' if col else ''}"] = "ok" if ok else "WRONG"
+        except RuntimeError as e:
+            out[f"M{m} K{k} N{n}{' colB' if col else ''}"] = str(e).splitlines()[0][:70]
+    torch.cuda.synchronize()
+    # the rate at an IResNet-50 stage-3 conv's GEMM (256 crops, 14x14, 3x3 x
+    # 256 -> 256): the right operand row- and column-major, and a bf16 mm
+    m, k, n = 256 * 14 * 14, 9 * 256, 256
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev)
+    bc = b.t().contiguous().t()
+    ab, bb = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    for name, fn in (("int_mm_rowB", lambda: torch._int_mm(a, b)),
+                     ("int_mm_colB", lambda: torch._int_mm(a, bc)),
+                     ("mm_bf16", lambda: ab @ bb)):
+        ms = time_ms(torch, fn, 10)
+        out[f"{name}_ms"], out[f"{name}_tops"] = ms, 2 * m * k * n / ms / 1e9
+    # int8_conv2d_nhwc at IResNet-50 block 0's Conv_0 (256 x 112x112 x 64 ->
+    # 64, 3x3): its im2col copying 8 channels a word, and one a byte
+    from facerecognition_infrenceengine_tpu_torch.ops import int8_conv
+
+    x8 = torch.randint(-127, 128, (256, 112, 112, 64), dtype=torch.int8, device=dev)
+    w8 = torch.randint(-127, 128, (3, 3, 64, 64), dtype=torch.int8, device=dev)
+    wide = int8_conv._WIDE
+    for name, words in (("conv_words", wide), ("conv_bytes", ())):
+        int8_conv._WIDE = words
+        try:
+            out[f"{name}_ms"] = time_ms(torch, lambda: int8_conv.int8_conv2d_nhwc(x8, w8, 1, 1), 3)
+        finally:
+            int8_conv._WIDE = wide
+    return out
+
+
+def int8_phase(torch, card: str, requests: list, cfg, app, yapp) -> dict:
+    """The opt-in scale modes at buffalo_l's full width (det_10g + r50, bf16,
+    the rgb path's canvas and slots): variants a-e of INT8_VARIANTS, each 3
+    requests of the rgb path's frames through FaceAnalysis.get_batch and
+    match_faces (K1, f32) on the phase's gallery, held against ``app``'s
+    engine (the float rgb engine as shipped) on the same frames and timed
+    beside ``app`` and ``yapp`` (the yuv420 path with K4), and the layers
+    alone (CUDA events): the embedder at 256 crops, the backbone and the
+    stem at 8 x 640x640, float against int8 / packed.  Fails the run
+    unless the int8 convs are exact on the card, the int8 embedder keeps min
+    cosine 0.98 against bf16, det_int8 keeps the valid slots with scores
+    within 5e-2, the packed stems match the unpacked stem in f32, and a
+    recalibration serves."""
+    import torch.nn.functional as F
+
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import (
+        FaceEngine, _calibration_crops)
+    from facerecognition_infrenceengine_tpu_torch.engine.recognizer import (
+        FaceRecognitionProcessor)
+    from facerecognition_infrenceengine_tpu_torch.models import arcface, packed_stem, quant, scrfd
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis, letterbox
+    from facerecognition_infrenceengine_tpu_torch.ops import (
+        int8_conv, match_kernel, stem_kernel, warp2pass, warp_kernel)
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore
+
+    t_phase = time.perf_counter()
+    engine = app._ensure_engine()
+    dev = torch.device(engine.device)
+    tag = "[int8]"
+    probe = int_mm_probe(torch, dev)
+    say(f"{tag} {card} | torch {torch.__version__}: torch._int_mm "
+        f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in probe.items()} }")
+    canv_np = np.stack([letterbox(np.ascontiguousarray(f[..., ::-1]), cfg.engine.det_size)[0]
+                        for f in requests[0]])
+    canv = torch.from_numpy(canv_np).to(dev)
+    with torch.inference_mode():
+        ref_det = engine.detect(canv_np, DET_THRESH)
+        _, _, kps, valid = engine._detect_impl(canv, DET_THRESH)
+        b, f = valid.shape
+        fidx = torch.arange(b, device=dev).repeat_interleave(f)
+        crops = warp2pass.warp_faces_two_pass(canv, fidx, kps.reshape(b * f, 5, 2),
+                                              cfg.engine.embed_size, dst=engine._dst)
+        keep = valid.reshape(-1)
+        ref_emb = engine._embed_crops_impl(crops)[keep]
+        x_crops = arcface.preprocess(crops[keep])
+        # 8 of the path's own crops for the recalibration: one a frame (its
+        # first slot), uint8 as a camera would give them
+        calib8 = crops.reshape(b, f, *crops.shape[1:])[:, 0].round().clamp(0, 255).to(
+            torch.uint8).cpu().numpy()
+
+    def cosines(e) -> tuple:
+        """(min, p50) cosine of an engine's embeddings of the float engine's
+        crops against the float engine's."""
+        with torch.inference_mode():
+            q = e._embed_crops_impl(crops)[keep]
+        cos = (q * ref_emb).sum(1).float().cpu().numpy()
+        return float(cos.min()), float(np.median(cos))
+    gallery = GalleryManager(Datastore(cfg), cfg, initial_load=False, device=dev)
+    out = {"card": card, "int_mm_probe": probe, "variants": {},
+           "launches": {"warp_rois": 0, "warp_windows_packed": 0, "gallery_top1": 0}}
+    apps = {}
+    for key, kw in INT8_VARIANTS:
+        vcfg = dataclasses.replace(cfg.engine, **kw)
+        t0 = time.perf_counter()
+        vapp = FaceAnalysis("buffalo_l", cfg=vcfg, device=dev,
+                            allowed_modules=("detection", "recognition"))
+        vapp.prepare(ctx_id=0, det_thresh=DET_THRESH)
+        ve = vapp._ensure_engine()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        apps[key] = (vapp, ve)
+        check(("int8" in ve.rec_variables) == bool(kw.get("embed_int8"))
+              and ("int8" in ve.det_variables) == bool(kw.get("det_int8"))
+              and ("packed_stem" in ve.det_variables) == bool(kw.get("packed_stem"))
+              and ("packed_stem_s2d4" in ve.det_variables) == (key == "e"),
+              f"{tag} {key}: the engine's collections {sorted(ve.det_variables)} "
+              f"{sorted(ve.rec_variables)} do not match {kw}")
+        if key == "e":
+            check(all(vapp._yuv_eligible(ve, fr) for fr in requests),
+                  f"{tag} e: the yuv420 path was not taken")
+        vproc = FaceRecognitionProcessor(gallery, face_app=vapp, cfg=cfg)
+        warp_kernel.warp_rois.launches = 0
+        warp_kernel.warp_rois.launches_by_size.clear()
+        match_kernel.gallery_top1.launches = 0
+        stem_kernel.fused_stem.launches = 0
+        mm0 = int8_conv.int8_conv2d_nhwc.calls
+        torch.cuda.reset_peak_memory_stats()
+        start_mb = torch.cuda.memory_allocated() / 2**20
+        wall, embs = [], []
+        for r, frames in enumerate(requests):
+            t0 = time.perf_counter()
+            faces = vapp.get_batch(frames)
+            setup = 0.0
+            if key == "a" and r == 0:  # the phase's gallery: a's request 1 + distractors
+                t1 = time.perf_counter()
+                own = [f"r0-f{i}-s{j}" for i, fl in enumerate(faces) for j in range(len(fl))]
+                emb = np.stack([x.normed_embedding for fl in faces for x in fl])
+                dis = np.random.default_rng(1).normal(
+                    size=(CAPACITY_ROWS - len(own), 512)).astype(np.float32)
+                ids = own + [f"distractor-{k}" for k in range(len(dis))]
+                gallery.set_snapshot(ids, {i: {"type": "employee", "name": i} for i in ids},
+                                     np.concatenate([emb, dis]), company_id="site-1")
+                torch.cuda.synchronize()
+                setup = time.perf_counter() - t1
+            rows = [vproc.match_faces(fr, fl, "site-1", draw=False)[1]
+                    for fr, fl in zip(frames, faces)]
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0 - setup) * 1e3)
+            embs.append(np.stack([x.normed_embedding for fl in faces for x in fl]))
+            check(all(np.isfinite(x.bbox).all() and abs(
+                float(np.linalg.norm(x.normed_embedding)) - 1.0) < 1e-3
+                for fl in faces for x in fl) and embs[-1].shape[0] > 0,
+                f"{tag} {key}: request {r + 1} has no face or a non-finite one")
+            if key == "a" and r == 0:
+                flat = [row for rs in rows for row in rs]
+                check(all(row["recognized"] and row["person_id"] == own[i]
+                          and row["similarity"] >= 0.99 for i, row in enumerate(flat)),
+                      f"{tag} a: a face of request 1 missed its own id")
+        launches = {"warp_rois": dict(warp_kernel.warp_rois.launches_by_size),
+                    "gallery_top1": match_kernel.gallery_top1.launches,
+                    "fused_stem": stem_kernel.fused_stem.launches,
+                    "int_mm": int8_conv.int8_conv2d_nhwc.calls - mm0}
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        n_frames = sum(1 for fr in requests for _ in fr)
+        check(launches["warp_rois"] == {112: REQUESTS} and launches["fused_stem"] == 0
+              and launches["gallery_top1"] == n_frames,
+              f"{tag} {key}: K3 must launch once a request at 112, K1 once a frame and K4 "
+              f"never: {launches}")
+        check((launches["int_mm"] > 0) == any(k.endswith("int8") for k in kw),
+              f"{tag} {key}: _int_mm calls {launches['int_mm']}")
+        out["launches"]["warp_windows_packed" if key == "e" else "warp_rois"] += \
+            launches["warp_rois"].get(112, 0)
+        out["launches"]["gallery_top1"] += launches["gallery_top1"]
+
+        def request(vapp=vapp, vproc=vproc):
+            return [vproc.match_faces(fr, fl, "site-1", draw=False)
+                    for fr, fl in zip(requests[1], vapp.get_batch(requests[1]))]
+
+        busy, ranges = range_trace(torch, request)
+        v = {"config": kw, "build_s": build_s, "request_ms": wall, "device_ms": busy,
+             "peak_memory_mb": peak_mb, "peak_above_start_mb": peak_mb - start_mb,
+             "launches": launches,
+             "int_mm_calls_a_request": launches["int_mm"] / REQUESTS,
+             "ranges_device_ms": ranges}
+        with torch.inference_mode():
+            det = ve.detect(canv_np, DET_THRESH)
+        both = det.valid & ref_det.valid
+        v["valid_equal"] = bool(np.array_equal(det.valid, ref_det.valid))
+        v["score_max_diff"] = float(np.abs(det.scores - ref_det.scores)[both].max())
+        v["box_max_diff_px"] = float(np.abs(det.boxes - ref_det.boxes)[both].max())
+        if "det_int8" in kw:
+            check(v["valid_equal"] and v["score_max_diff"] <= INT8_SCORE_TOL,
+                  f"{tag} {key}: det_int8 valid slots equal {v['valid_equal']}, scores "
+                  f"{v['score_max_diff']} (limit {INT8_SCORE_TOL})")
+        if "embed_int8" in kw:
+            # at the build's calibration (structured synthetic crops): reported,
+            # with the share of the path's activations its scales clip
+            v["cos_min_default"], v["cos_p50_default"] = cosines(ve)
+            with torch.inference_mode():
+                frac = quant.clip_fractions(ve.embedder, ve._embed_scales, x_crops,
+                                            depths=ve._quant_depths, dtype=ve.dtype)
+            v["clip_fraction_max_default"] = max(frac.values())
+            t0 = time.perf_counter()
+            ve.recalibrate_int8()
+            torch.cuda.synchronize()
+            v["recalibrate_default_ms"] = (time.perf_counter() - t0) * 1e3
+        if "det_int8" in kw:
+            h, w = cfg.engine.det_size
+            calib = scrfd.preprocess(ve._to_device(
+                _calibration_crops(4, max(h, w), seed=4321)[:, :h, :w]))
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                scales = quant.calibrate_scrfd(ve.detector, calib, ve.detector.cfg,
+                                               dtype=ve.dtype)
+            torch.cuda.synchronize()
+            v["det_calibrate_ms"] = (time.perf_counter() - t0) * 1e3
+            check(scales == ve._det_scales, f"{tag} {key}: the detector's scales moved")
+        out["variants"][key] = v
+        say(f"{tag} {card} | {key} {kw}: built in {build_s:.2f} s; request wall ms "
+            f"{[round(t, 1) for t in wall]}, device {busy:.3f} ms a request, peak "
+            f"{peak_mb:.1f} MiB ({peak_mb - start_mb:.1f} above the variant's start); "
+            f"_int_mm calls a request {v['int_mm_calls_a_request']:.0f}, "
+            f"ranges {({k: round(t, 3) for k, t in ranges.items()})}; valid equal "
+            f"{v['valid_equal']}, scores max diff {v['score_max_diff']:.2e}, boxes "
+            f"{v['box_max_diff_px']:.2f} px"
+            + (f"; at the build's calibration cos vs bf16 min {v['cos_min_default']:.5f} p50 "
+               f"{v['cos_p50_default']:.5f}, clip fraction up to "
+               f"{v['clip_fraction_max_default']:.4f}, recalibrate (8 structured crops) "
+               f"{v['recalibrate_default_ms']:.1f} ms" if "cos_min_default" in v else "")
+            + (f"; det calibration {v['det_calibrate_ms']:.1f} ms"
+               if "det_calibrate_ms" in v else ""))
+
+    # the float paths' requests beside the variants', through the same trace
+    for key, base in (("rgb", app), ("yuv_k4", yapp)):
+        bproc = FaceRecognitionProcessor(gallery, face_app=base, cfg=cfg)
+        busy, _ = range_trace(torch, lambda base=base, bproc=bproc: [
+            bproc.match_faces(fr, fl, "site-1", draw=False)
+            for fr, fl in zip(requests[1], base.get_batch(requests[1]))])
+        out[f"{key}_device_ms"] = busy
+    # the layers alone at the path's shapes, CUDA events: embedder (256 crops),
+    # backbone and stem (8 x 640x640), float against int8 / packed
+    ae, be, de, ee = (apps[k][1] for k in "abde")
+    with torch.inference_mode():
+        xd = scrfd.preprocess(canv)
+        x4 = stem_kernel.space_to_depth4(canv).contiguous()
+        bb = engine.detector.backbone
+        sw = engine.stem_width
+        layers = {
+            "embedder_bf16": lambda: engine._apply_embedder(x_crops),
+            "embedder_int8": lambda: ae._apply_embedder(x_crops),
+            "backbone_bf16": lambda: bb(xd.permute(0, 3, 1, 2).to(engine.dtype)),
+            "backbone_int8": lambda: quant.scrfd_backbone_forward(
+                be.detector, xd, be.detector.cfg, qw=be.det_variables["int8"],
+                act_scales=be._det_scales, dtype=be.dtype),
+            "stem_cudnn": lambda: F.max_pool2d(bb.stem3(bb.stem2(bb.stem1(
+                xd.permute(0, 3, 1, 2).to(engine.dtype)))), 3, 2, 1),
+            "stem_packed": lambda: packed_stem.packed_stem_forward(
+                xd, de.det_variables["packed_stem"], sw, de.dtype),
+            "stem_packed_s2d4": lambda: packed_stem.packed_stem_forward_s2d4(
+                x4, ee.det_variables["packed_stem_s2d4"], sw, ee.dtype),
+            "stem_k4": lambda: stem_kernel.fused_stem_s2d4(x4, engine.stem_weights, sw),
+        }
+        out["layers_ms"] = {k: time_ms(torch, fn, 3) for k, fn in layers.items()}
+    say(f"{tag} {card} | request device ms: rgb {out['rgb_device_ms']:.3f}, yuv420 with K4 "
+        f"{out['yuv_k4_device_ms']:.3f}; layers alone (CUDA events, ms): "
+        f"{ {k: round(t, 3) for k, t in out['layers_ms'].items()} }")
+
+    # the int32 convs on the card, exact: the path's own int8 inputs at one
+    # point of each IResNet stage and det_10g's stem1, stem2 and a
+    # downsample, captured from a request of variant c
+    vapp, ve = apps["c"]
+    det_names = [n for n, _, _ in quant._scrfd_names(ve.detector.cfg)]
+    order = det_names + quant.calibration_order(ve._quant_depths)
+    calls, taken = [0], {}
+    real = quant.int8_conv2d_nhwc
+
+    def capture(x8, w8, stride, pad, scale=None):
+        name = order[calls[0]] if calls[0] < len(order) else None
+        calls[0] += 1
+        if name in INT8_EXACT_POINTS:
+            taken[name] = (x8.clone(), w8, stride, pad)
+        return real(x8, w8, stride, pad, scale=scale)
+
+    quant.int8_conv2d_nhwc = capture
+    try:
+        vapp.get_batch(requests[0])
+    finally:
+        quant.int8_conv2d_nhwc = real
+    check(calls[0] == len(order) and set(taken) == set(INT8_EXACT_POINTS),
+          f"{tag} captured {calls[0]} int8 convs of {len(order)}, points {sorted(taken)}")
+    t0 = time.perf_counter()
+    exact = {}
+    for name in INT8_EXACT_POINTS:
+        x8, w8, stride, pad = taken[name]
+        got = int8_conv.int8_conv2d_nhwc(x8, w8, stride, pad)
+        want = int8_conv.int8_conv2d_exact(x8, w8, stride, pad)
+        check(torch.equal(got, want), f"{tag} {name}: int8_conv2d_nhwc differs from the exact "
+              f"conv at {tuple(x8.shape)}: {int((got != want).sum())} values")
+        exact[name] = [list(x8.shape), list(w8.shape), stride]
+    torch.cuda.synchronize()
+    out["exact_points"] = exact
+    say(f"{tag} {card} | int8_conv2d_nhwc equals the float64 conv bit for bit on the path's "
+        f"int8 inputs: {exact} ({time.perf_counter() - t0:.2f} s)")
+
+    # recalibration on 8 of the path's own crops (one a frame) serves the next
+    # request, and holds a and c to the float engine: min cosine >= 0.98 over
+    # all its crops (the build's structured calibration is reported above)
+    vapp, ve = apps["a"]
+    old = ve._embed_scales
+    emb_before = np.stack([x.normed_embedding for fl in vapp.get_batch(requests[1]) for x in fl])
+    t0 = time.perf_counter()
+    ve.recalibrate_int8(calib8)
+    torch.cuda.synchronize()
+    recal_ms = (time.perf_counter() - t0) * 1e3
+    emb_after = np.stack([x.normed_embedding for fl in vapp.get_batch(requests[1]) for x in fl])
+    moved = float(np.abs(emb_after - emb_before).max())
+    check(ve._int8_calibration == f"user({len(calib8)} crops)" and ve._embed_scales != old
+          and moved > 0,
+          f"{tag} recalibration: {ve._int8_calibration}, scales changed "
+          f"{ve._embed_scales != old}, embeddings moved {moved}")
+    apps["c"][1].recalibrate_int8(calib8)
+    for key in ("a", "c"):
+        v = out["variants"][key]
+        v["cos_min"], v["cos_p50"] = cosines(apps[key][1])
+        with torch.inference_mode():
+            frac = quant.clip_fractions(apps[key][1].embedder, apps[key][1]._embed_scales,
+                                        x_crops, depths=apps[key][1]._quant_depths,
+                                        dtype=apps[key][1].dtype)
+        v["clip_fraction_max"] = max(frac.values())
+        check(v["cos_min"] >= INT8_COS_MIN, f"{tag} {key}: int8 against bf16 embeddings of the "
+              f"float engine's {int(keep.sum())} crops, recalibrated on 8 of them: min cosine "
+              f"{v['cos_min']} < {INT8_COS_MIN}")
+    out["recalibrate_user8_ms"] = recal_ms
+    out["recalibrated_embedding_max_move"] = moved
+    say(f"{tag} {card} | recalibrated on 8 of the path's crops (one a frame) in {recal_ms:.1f} "
+        f"ms: cos vs bf16 on the float engine's {int(keep.sum())} crops a min "
+        f"{out['variants']['a']['cos_min']:.5f} p50 {out['variants']['a']['cos_p50']:.5f}, c "
+        f"min {out['variants']['c']['cos_min']:.5f}; clip fraction up to "
+        f"{out['variants']['a']['clip_fraction_max']:.4f}; the next request's embeddings "
+        f"moved up to {moved:.3e}")
+
+    # the packed stems against the unpacked stem on the same frames: an f32
+    # engine (TF32 off) within rtol 1e-3 / atol 2e-3, and the bf16 variants'
+    # largest difference
+    f32 = FaceEngine(EngineConfig(det_size=cfg.engine.det_size, dtype="float32",
+                                  packed_stem=True, packed_stem_impl="xla"),
+                     rec_arch="r18", device=dev)
+    stems = {}
+    for label, e in (("float32", f32), ("bfloat16 d", apps["d"][1]),
+                     ("bfloat16 e", apps["e"][1])):
+        with torch.inference_mode():
+            x = scrfd.preprocess(canv)
+            bb = e.detector.backbone
+            ref = F.max_pool2d(bb.stem3(bb.stem2(bb.stem1(x.permute(0, 3, 1, 2).to(e.dtype)))),
+                               3, 2, 1).permute(0, 2, 3, 1).float()
+            got = {}
+            if "packed_stem" in e.det_variables:
+                got["packed_stem"] = packed_stem.packed_stem_forward(
+                    x, e.det_variables["packed_stem"], e.stem_width, e.dtype).float()
+            if "packed_stem_s2d4" in e.det_variables:
+                got["packed_stem_s2d4"] = packed_stem.packed_stem_forward_s2d4(
+                    stem_kernel.space_to_depth4(canv).contiguous(),
+                    e.det_variables["packed_stem_s2d4"], e.stem_width, e.dtype).float()
+        for name, g in got.items():
+            err = (g - ref).abs()
+            worst = float((err - PACKED_RTOL * ref.abs()).max())
+            stems[f"{name} {label}"] = {"max_abs": float(err.max()),
+                                        "max_ref": float(ref.abs().max()),
+                                        "over_tolerance": worst - PACKED_ATOL}
+            if label == "float32":
+                check(worst <= PACKED_ATOL, f"{tag} {name} f32 against the unpacked stem: "
+                      f"max |diff| {float(err.max())} beyond rtol {PACKED_RTOL} / atol "
+                      f"{PACKED_ATOL}")
+    out["stems"] = stems
+    say(f"{tag} {card} | packed stems against the unpacked stem on request 1's canvases: "
+        f"{ {k: round(v['max_abs'], 6) for k, v in stems.items()} } (max |ref| "
+        f"{max(v['max_ref'] for v in stems.values()):.3f})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"{tag} phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3646,6 +4101,12 @@ def main() -> int:
     say(f"[onnx] {card} | attributes on {len(o_faces)} faces, device {o_dev_ms:.3f} ms a call "
         f"(exact graphs, float32) against {s_dev_ms:.3f} ms (the synthetic heads, bf16)")
 
+    # ----------------------------------------------------------- int8 path
+    # the opt-in scale modes (int8 embedder and detector backbone, the packed
+    # plain-conv stems), after every kernel's own traces; its K3 and K1
+    # launches join the kernels line
+    int8 = int8_phase(torch, card, requests, cfg, app, yapp)
+
     # ---------------------------------------------------------- server path
     # the live server, run a as the reference ships it (Config() defaults),
     # run b on the streaming profile; then the entry point in a subprocess.
@@ -3720,6 +4181,7 @@ def main() -> int:
                                      "force_sync_ms": sync_ms, "launches": g_launches}}))
     for run in server_runs:
         say(json.dumps({"server_path": dict(run, entry_point=entry["inference_server"])}))
+    say(json.dumps({"int8_path": int8}))
     say(json.dumps({"enroll_path": enroll}))
     say(json.dumps({"count_path": count}))
     say(json.dumps({"entry_points": entry}))
@@ -3742,6 +4204,9 @@ def main() -> int:
                 k["launches"] += by_size.get(k["out_size"], 0)
             elif k["name"] == "gallery_top1":
                 k["launches"] += k1
+    # and the [int8] phase's (K3 at 112, raw and packed, and K1)
+    for k in kernels:
+        k["launches"] += int8["launches"].get(k["name"], 0)
     say(json.dumps({"kernels": kernels}))
     say(f"[done] {card} | the script took {time.perf_counter() - t_script:.1f} s")
     say(card_line())

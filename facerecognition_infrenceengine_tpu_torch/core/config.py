@@ -78,9 +78,8 @@ class ThresholdConfig:
 
 @dataclass
 class EngineConfig:
-    """Pipeline shapes and dtypes, micro-batching and streaming: the
-    reference's serving fields, with its defaults.  The int8 / packed-stem
-    scale modes come with the modules that read them."""
+    """Pipeline shapes and dtypes, micro-batching, streaming and the opt-in
+    scale modes: the reference's fields, with its defaults."""
 
     # Detector input canvas (static shape of every detect program).
     det_size: tuple = (640, 640)
@@ -127,26 +126,39 @@ class EngineConfig:
     # one global scale (ops/match_kernel.quantize_gallery) matched by K2:
     # near-tie top-1 decisions can flip, so it is opt-in for scale.
     gallery_dtype: str = "float32"
+    # Evaluate the SCRFD stem in space-to-depth packed layout as plain convs
+    # (models/packed_stem.py) on the raw-RGB detect.  A pure re-indexing of
+    # the same weights (tests/test_torch_packed_stem.py); opt-in, as in the
+    # reference, which measured it slower than its own stem lowering.
+    packed_stem: bool = False
     # K4, the fused SCRFD stem (ops/stem_kernel.py), on the raw-RGB detect:
     # "on" | "off" | "auto" ("auto" is on only on a TPU in the reference,
     # so off here).
     stem_kernel: str = "off"
     # Stem of the packed-input programs (detect_align_embed_packed /
     # _yuv420): "unpack" undoes the s2d4 layout and runs the raw program;
-    # "pallas" runs K4 on the packed frames and warps from a packed atlas.
-    # "xla" (the packed stem as plain convs) is not ported.
-    packed_stem_impl: str = "unpack"
+    # "pallas" runs K4 on the packed frames and warps from a packed atlas;
+    # "xla" runs the packed stem as three plain convs
+    # (models/packed_stem.packed_stem_forward_s2d4) and warps from a packed
+    # atlas.
+    packed_stem_impl: str = "unpack"  # "unpack" | "xla" | "pallas"
     # Host -> device frame transport of FaceAnalysis.get_batch: "rgb"
     # (3 B/px canvases) or "yuv420" (4:2:0 YUV in s2d4 layout, 1.5 B/px,
     # content rows only; ops/yuv.py undoes it on the device).
     stream_transport: str = "rgb"
+    # int8 post-training-quantized IResNet embedder (models/quant.py):
+    # per-output-channel int8 weights, per-tensor activation scales
+    # calibrated at build (FaceEngine.recalibrate_int8), s8 x s8 -> s32
+    # convs (ops/int8_conv.py).  An opt-in scale mode, not the parity path;
+    # r50 and r18 only (MobileFaceNet ignores it).
+    embed_int8: bool = False
+    # int8 PTQ SCRFD backbone (models/quant.scrfd_backbone_forward), the
+    # same scheme; the neck and head stay float.  Opt-in, as in the
+    # reference, which measured it slower than its float backbone.
+    det_int8: bool = False
 
     def __post_init__(self):
-        if self.packed_stem_impl == "xla":
-            raise NotImplementedError(
-                'packed_stem_impl="xla" (the packed stem as plain convs) is '
-                "ROADMAP Queue 1 item 4; use \"unpack\" or \"pallas\"")
-        if self.packed_stem_impl not in ("unpack", "pallas"):
+        if self.packed_stem_impl not in ("unpack", "xla", "pallas"):
             raise ValueError(f"packed_stem_impl {self.packed_stem_impl!r}")
         if self.stem_kernel not in ("on", "off", "auto"):
             raise ValueError(f"stem_kernel {self.stem_kernel!r}")

@@ -1,0 +1,1 @@
+from .pipeline import FaceEngine, DetectionBatch, bucket  # noqa: F401

@@ -17,8 +17,17 @@ and packed yuv420 content rows [B, rows, W/4, 24]
 picks the packed programs' stem: "unpack" undoes the s2d4 layout and runs
 the raw program; "pallas" runs K4, the fused stem kernel
 (``ops/stem_kernel.py``), on the packed frames, the backbone from its
-output, and warps from a packed pyramid atlas.  ``stem_kernel="on"`` runs
-K4 on the raw path too.
+output, and warps from a packed pyramid atlas; "xla" does the same with the
+packed stem as three plain convs (``models/packed_stem.py``).
+``stem_kernel="on"`` runs K4 on the raw path too, and ``packed_stem`` the
+packed plain-conv stem.
+
+The opt-in int8 scale modes (``models/quant.py``): ``embed_int8`` runs the
+IResNet embedder with int8 PTQ weights and calibrated activation scales
+(``recalibrate_int8``), s8 x s8 -> s32 convs through ``torch._int_mm``
+(``ops/int8_conv.py``); ``det_int8`` the SCRFD backbone likewise, calibrated
+at build, with the neck and head float.  As in the reference, the packed
+"xla" / "pallas" programs keep the float backbone under ``det_int8``.
 
 ``attributes`` runs buffalo_l's genderage and 2d106det heads on K3 crops:
 the exact ONNX graphs when converted ones sit in the weights dir
@@ -43,9 +52,11 @@ from .. import native
 from ..core import metrics
 from ..core.config import EngineConfig, get_config
 from ..core.device import resolve_device
-from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, scrfd
+from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, quant, scrfd
 from ..models.layers import cast_keep_bn_f32
 from ..models.onnx_exec import OnnxRunner
+from ..models.packed_stem import packed_stem_forward, packed_stem_forward_s2d4
+from ..models.packed_stem import precompute_packed_stem, precompute_packed_stem_s2d4
 from ..models.weights import flatten_tree, load_or_init, load_tree, weights_dir
 from ..ops.align import ARCFACE_DST
 from ..ops.anchors import all_anchor_centers
@@ -93,6 +104,43 @@ def bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256)) -> int:
     return ((n + buckets[-1] - 1) // buckets[-1]) * buckets[-1]
 
 
+def _calibration_crops(n: int, size: int, seed: int = 1234) -> np.ndarray:
+    """Deterministic structured calibration images for PTQ, the reference's
+    bit for bit.
+
+    Aligned face crops are dominated by smooth shading (skin), a bright oval
+    on a darker background, localized dark features (eyes, brows, mouth) and
+    mild texture.  These synthetic crops span that structure -- per-image
+    illumination gradients, an elliptical bright region, feature blobs and
+    low-amplitude noise -- so abs-max activation scales land closer to
+    real-face ranges than uniform noise would.  With real weights, calibrate
+    from real aligned crops through ``FaceEngine.recalibrate_int8``.
+    """
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / (size - 1)
+    crops = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        gx, gy = rng.uniform(-60, 60, 2)
+        base = rng.uniform(70, 170)
+        img = base + gx * (xx - 0.5) + gy * (yy - 0.5)
+        # face oval (centre-bright ellipse)
+        cx, cy = rng.uniform(0.4, 0.6, 2)
+        d = ((xx - cx) / 0.32) ** 2 + ((yy - cy) / 0.45) ** 2
+        img = img + rng.uniform(20, 70) * np.exp(-d)
+        img = np.repeat(img[:, :, None], 3, axis=2)
+        img *= np.array([1.0, rng.uniform(0.75, 0.95),
+                         rng.uniform(0.6, 0.9)], np.float32)  # skin-ish tint
+        # dark feature blobs (eyes, brows, mouth analogues)
+        for _ in range(rng.integers(3, 6)):
+            bx, by = rng.uniform(0.2, 0.8, 2)
+            bw = rng.uniform(0.04, 0.12)
+            blob = np.exp(-(((xx - bx) / bw) ** 2 + ((yy - by) / (bw * 0.6)) ** 2))
+            img -= rng.uniform(30, 90) * blob[:, :, None]
+        img += rng.normal(0, 6, img.shape)  # sensor-noise texture
+        crops[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return crops
+
+
 @dataclass
 class DetectionBatch:
     """Host-side view of the detect program's fixed-shape outputs."""
@@ -119,12 +167,18 @@ class FaceEngine:
     Weights come from ``det_variables`` / ``rec_variables`` (the reference
     engine's flax variable trees, converted by ``models/weights.from_flax``;
     its derived collections -- ``stem_pallas``, ``packed_stem``,
-    ``packed_stem_s2d4``, ``int8`` -- are ignored and K4's fold is recomputed
-    from ``params`` + ``batch_stats``), else from
+    ``packed_stem_s2d4``, ``int8`` -- are ignored and recomputed from
+    ``params`` + ``batch_stats``), else from
     ``<FRE_WEIGHTS_DIR>/scrfd_<det_arch>.npz`` and ``arcface_<rec_arch>.npz``
     when present, else the reference's synthetic weights for ``seed``
     (detector) and ``seed + 1`` (embedder).  The attribute heads load at the
     first ``attributes`` call.
+
+    ``self.det_variables`` / ``self.rec_variables`` hold the derived
+    collections under the reference's names (``stem_pallas``, and as
+    configured ``packed_stem``, ``packed_stem_s2d4``, ``int8``: the int8
+    weights {point: (w8, sw)}), all folded from the float32 modules before
+    the cast to the engine dtype.
     """
 
     @metrics.on_device
@@ -146,40 +200,97 @@ class FaceEngine:
         self.stem_width = detector.cfg.stem_width
         self.stem_weights = {k: v.to(self.device) for k, v in
                              precompute_fused_stem(detector, self.dtype).items()}
+        self.det_variables = {"stem_pallas": self.stem_weights}
+        self.rec_variables = {}
+        # the packed plain-conv stems, only when selected
+        for key, on, fold in (("packed_stem", self.cfg.packed_stem, precompute_packed_stem),
+                              ("packed_stem_s2d4", self.cfg.packed_stem_impl == "xla",
+                               precompute_packed_stem_s2d4)):
+            if on:
+                packed = fold(detector, self.dtype)
+                self.det_variables[key] = {k: [t.to(self.device) for t in v]
+                                           for k, v in packed.items()}
+        # int8 PTQ weights {point: (w8, sw)}, quantized from the float32 weights
+        self._embed_scales = None
+        self._int8_calibration = None
+        self._det_scales = None
+        if self.cfg.embed_int8 and rec_arch in ("r50", "r18"):
+            self._quant_depths = (3, 4, 14, 3) if rec_arch == "r50" else (2, 2, 2, 2)
+            self.rec_variables["int8"] = self._on_device(
+                quant.quantize_weights(embedder, depths=self._quant_depths))
+        if self.cfg.det_int8:
+            self.det_variables["int8"] = self._on_device(
+                quant.quantize_scrfd_weights(detector, detector.cfg))
         # "auto" turns the raw-path stem kernel on only on a TPU in the
         # reference: off here
         self._stem_kernel_raw = self.cfg.stem_kernel == "on"
-        # BatchNorm stays float32 in a bf16 engine, as the reference's
+        # BatchNorm stays float32 in a bf16 engine, as the reference's.  The
+        # int8 embedder's twin reads float32 parameters (the reference adds
+        # its float32 Dense bias and PReLU slopes), so that module stays
+        # float32: the engine never runs it as a float embedder.
         fmt = torch.channels_last if self.device.type == "cuda" else torch.contiguous_format
         self.detector = cast_keep_bn_f32(detector, self.device, self.dtype, fmt)
-        self.embedder = cast_keep_bn_f32(embedder, self.device, self.dtype, fmt)
+        self.embedder = cast_keep_bn_f32(embedder, self.device, (
+            torch.float32 if "int8" in self.rec_variables else self.dtype), fmt)
         self._centers = all_anchor_centers(h, w, device=self.device)
         self._strides = torch.from_numpy(_stride_rows(h, w)).to(self.device)
         self._dst = torch.from_numpy(ARCFACE_DST * (self.cfg.embed_size / 112.0)).to(self.device)
         self._attr_models = None  # (genderage, landmark106), at first use
         self._attr_runners = None  # the exact ONNX graphs, when converted
         self._attr_sizes = (genderage.INPUT_SIZE, landmark106.INPUT_SIZE)
+        if "int8" in self.rec_variables:
+            self.recalibrate_int8()
+        if "int8" in self.det_variables:
+            # the detector's scales, once, on structured crops at the canvas
+            calib = _calibration_crops(4, max(h, w), seed=4321)[:, :h, :w]
+            with torch.inference_mode():
+                self._det_scales = quant.calibrate_scrfd(
+                    self.detector, scrfd.preprocess(self._to_device(calib)), self.detector.cfg,
+                    dtype=self.dtype)
+
+    def _on_device(self, qw: dict) -> dict:
+        return {k: tuple(t.to(self.device) for t in v) for k, v in qw.items()}
 
     # -------------------------------------------------------------- programs
     def _detect_impl(self, frames_u8: torch.Tensor, det_threshold: float):
+        """Raw frames: the int8 backbone under ``det_int8`` (it replaces
+        the whole float backbone, stem included), else the stem as
+        configured -- K4 (``stem_kernel="on"``), the packed plain convs
+        (``packed_stem``, H and W multiples of 4), or the detector's own."""
         h, w = int(frames_u8.shape[1]), int(frames_u8.shape[2])
-        if (self._stem_kernel_raw and frames_u8.dtype == torch.uint8
+        x, stem_out, feats_in = None, None, None
+        if "int8" in self.det_variables:
+            x = scrfd.preprocess(frames_u8)
+            feats_in = quant.scrfd_backbone_forward(
+                self.detector, x, self.detector.cfg, qw=self.det_variables["int8"],
+                act_scales=self._det_scales, dtype=self.dtype)
+        elif (self._stem_kernel_raw and frames_u8.dtype == torch.uint8
                 and h % 4 == 0 and w % 4 == 0 and ((h // 4) % 16 == 0 or h // 4 <= 64)):
             # K4 from raw frames: pack on the device, then the fused stem
             stem_out = fused_stem_s2d4(space_to_depth4(frames_u8).contiguous(),
                                        self.stem_weights, self.stem_width)
-            logits, bbox, kps = self.detector(None, stem_out=stem_out)
+        elif "packed_stem" in self.det_variables and h % 4 == 0 and w % 4 == 0:
+            stem_out = packed_stem_forward(scrfd.preprocess(frames_u8),
+                                           self.det_variables["packed_stem"], self.stem_width,
+                                           self.dtype)
         else:
-            logits, bbox, kps = self.detector(scrfd.preprocess(frames_u8))
+            x = scrfd.preprocess(frames_u8)
+        logits, bbox, kps = self.detector(x, stem_out=stem_out, feats_in=feats_in)
         return self._decode_nms(logits, bbox, kps, det_threshold)
 
     def _detect_packed_impl(self, frames_p4: torch.Tensor, det_threshold: float):
         """Detect from s2d4-packed u8 frames [B, H/4, W/4, 48]: "unpack" runs
         the raw program on the unpacked frames; "pallas" runs K4 on the
-        packed frames and the backbone from its output."""
+        packed frames, "xla" the packed plain-conv stem, and the float
+        backbone from its output (under ``det_int8`` too, as the
+        reference's packed programs do)."""
         if self.cfg.packed_stem_impl == "unpack":
             return self._detect_impl(depth_to_space4(frames_p4), det_threshold)
-        stem_out = fused_stem_s2d4(frames_p4, self.stem_weights, self.stem_width)
+        if self.cfg.packed_stem_impl == "xla":
+            stem_out = packed_stem_forward_s2d4(frames_p4, self.det_variables["packed_stem_s2d4"],
+                                                self.stem_width, self.dtype)
+        else:
+            stem_out = fused_stem_s2d4(frames_p4, self.stem_weights, self.stem_width)
         logits, bbox, kps = self.detector(None, stem_out=stem_out)
         return self._decode_nms(logits, bbox, kps, det_threshold)
 
@@ -203,13 +314,23 @@ class FaceEngine:
         okps = torch.where(valid[..., None, None], okps, torch.zeros_like(okps))
         return ob, osc, okps, valid
 
+    def _apply_embedder(self, x: torch.Tensor) -> torch.Tensor:
+        """Every embedding program's embedder: the int8 twin when the engine
+        holds int8 weights (the scales dict read once: a recalibration
+        replaces it whole), else the module."""
+        if "int8" in self.rec_variables:
+            return quant.apply_int8(self.embedder, self.rec_variables["int8"],
+                                    self._embed_scales, x, depths=self._quant_depths,
+                                    dtype=self.dtype)
+        return self.embedder(x)
+
     def _embed_impl(self, frames_u8, frame_idx, kps):
         crops = warp_faces_two_pass(frames_u8, frame_idx, kps, self.cfg.embed_size,
                                     dst=self._dst)
-        return l2_normalize(self.embedder(arcface.preprocess(crops)))
+        return l2_normalize(self._apply_embedder(arcface.preprocess(crops)))
 
     def _embed_crops_impl(self, crops):
-        return l2_normalize(self.embedder(arcface.preprocess(crops)))
+        return l2_normalize(self._apply_embedder(arcface.preprocess(crops)))
 
     def _fused_impl(self, frames_u8, det_threshold: float):
         """detect -> align -> embed at fixed [B, max_faces]."""
@@ -222,7 +343,8 @@ class FaceEngine:
     def _fused_packed_impl(self, frames_p4, det_threshold: float):
         """Packed detect -> align -> embed.  "unpack" is the raw program on
         the unpacked frames (outputs identical to ``detect_align_embed`` on
-        the same pixels); "pallas" warps from the packed pyramid atlas."""
+        the same pixels); "pallas" and "xla" warp from the packed pyramid
+        atlas."""
         if self.cfg.packed_stem_impl == "unpack":
             return self._fused_impl(depth_to_space4(frames_p4), det_threshold)
         boxes, scores, kps, valid = self._detect_packed_impl(frames_p4, det_threshold)
@@ -230,7 +352,7 @@ class FaceEngine:
         frame_idx = torch.arange(b, device=self.device).repeat_interleave(f)
         crops = warp_faces_two_pass_packed(frames_p4, frame_idx, kps.reshape(b * f, 5, 2),
                                            self.cfg.embed_size, dst=self._dst)
-        emb = l2_normalize(self.embedder(arcface.preprocess(crops)))
+        emb = l2_normalize(self._apply_embedder(arcface.preprocess(crops)))
         return boxes, scores, kps, valid, emb.reshape(b, f, -1)
 
     def _fused_yuv_impl(self, frames_y24, det_threshold: float):
@@ -402,17 +524,37 @@ class FaceEngine:
         return self._fused_flat_impl(self._to_device(frames_u8), det_threshold)
 
     @metrics.on_device
+    @torch.inference_mode()
     def recalibrate_int8(self, crops_u8=None):
-        """(Re)calibrate the int8 embedder's activation scales.  The int8
-        PTQ embedder (``embed_int8``, ROADMAP Queue 1 item 4) is not ported,
-        so no engine here holds int8 weights: this raises the reference's
-        error for such an engine."""
-        raise ValueError("engine was not built with embed_int8")
+        """(Re)calibrate the int8 embedder's activation scales.
+
+        crops_u8: [N, embed_size, embed_size, 3] uint8 aligned face crops --
+        with real weights, real production crops; None uses the
+        deterministic structured default (``_calibration_crops``).  The new
+        scales replace the old dict in one assignment, so a dispatch in
+        flight embeds with the old scales or the new ones, never a mix;
+        ``models/quant.clip_fractions`` measures drift on live data."""
+        if "int8" not in self.rec_variables:
+            raise ValueError("engine was not built with embed_int8")
+        if crops_u8 is None:
+            crops_u8 = _calibration_crops(8, self.cfg.embed_size)
+            label = "synthetic-structured"
+        else:
+            label = f"user({len(crops_u8)} crops)"
+        x = arcface.preprocess(self._to_device(np.asarray(crops_u8, np.uint8)))
+        self._embed_scales = quant.calibrate(self.embedder, x, depths=self._quant_depths,
+                                             dtype=self.dtype)
+        self._int8_calibration = label
 
     def _has_packed_stem(self) -> bool:
-        """Whether the packed-input programs can run: "unpack" needs nothing
-        extra, "pallas" the fused-stem weights."""
-        return self.cfg.packed_stem_impl == "unpack" or bool(self.stem_weights)
+        """Whether the packed-input programs can run: the selected
+        ``packed_stem_impl``'s weights are present ("unpack" runs the raw
+        program and needs nothing extra)."""
+        if self.cfg.packed_stem_impl == "unpack":
+            return True
+        if self.cfg.packed_stem_impl == "xla":
+            return "packed_stem_s2d4" in self.det_variables
+        return "stem_pallas" in self.det_variables
 
     @staticmethod
     def pack_frames(frames_u8) -> np.ndarray:

@@ -51,6 +51,15 @@ CONFIGS = {
 }
 
 
+def block_has_downsample(cfg: SCRFDConfig, stage: int, block: int) -> bool:
+    """Whether backbone block (stage, block) carries a downsample shortcut."""
+    if block != 0:
+        return False
+    stride = 1 if stage == 0 else 2
+    in_ch = 2 * cfg.stem_width if stage == 0 else cfg.stage_planes[stage - 1]
+    return stride != 1 or in_ch != cfg.stage_planes[stage]
+
+
 class BasicBlockV1e(nn.Module):
     """conv3x3(stride)-BN-ReLU -> conv3x3-BN, shortcut identity or
     avgpool(stride) + conv1x1 + BN, then add + ReLU."""
@@ -160,17 +169,23 @@ class SCRFD(nn.Module):
         for lvl in range(len(STRIDES)):
             self.register_parameter(f"bbox_scale_{lvl}", nn.Parameter(torch.ones(1)))
 
-    def forward(self, x: torch.Tensor | None, stem_out: torch.Tensor | None = None):
+    def forward(self, x: torch.Tensor | None, stem_out: torch.Tensor | None = None,
+                feats_in: list | None = None):
         """x: [B, H, W, 3] NHWC, preprocessed.  ``stem_out``: the stem's
-        [B, H/4, W/4, 2*stem_width] NHWC output (K4); the backbone then
-        starts at stage 1 and ``x`` is not read (it may be None).
+        [B, H/4, W/4, 2*stem_width] NHWC output (K4, the packed stems); the
+        backbone then starts at stage 1 and ``x`` is not read (it may be
+        None).  ``feats_in``: the whole backbone's [C3, C4, C5] NHWC output
+        (the int8 backbone, models/quant.scrfd_backbone_forward); the float
+        backbone is not run and ``x`` and ``stem_out`` are not read.
 
         Returns (scores [B, A, 1] logits, bbox [B, A, 4] stride units,
         kps [B, A, 10] stride units) in float32, rows ordered
         (stride asc, y, x, anchor)."""
         dtype = self.bbox_scale_0.dtype
-        if stem_out is not None:
-            # NHWC permuted to NCHW is already a channels_last view: no copy
+        # NHWC permuted to NCHW is already a channels_last view: no copy
+        if feats_in is not None:
+            feats = self.neck([f.permute(0, 3, 1, 2).to(dtype) for f in feats_in])
+        elif stem_out is not None:
             feats = self.neck(self.backbone(None, stem_out.permute(0, 3, 1, 2).to(dtype)))
         else:
             feats = self.neck(self.backbone(x.permute(0, 3, 1, 2).to(dtype)))

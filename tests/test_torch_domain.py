@@ -42,7 +42,7 @@ exec_port_cases("test_enrollment_gallery.py", globals(), only=(
     "test_stuck_recovery_respects_fresh_heartbeat", "test_worker_uses_injected_thresholds",
     "test_sync_survives_custom_and_string_ids", "test_match_query_batch_is_bucketed"))
 exec_port_cases("test_servers.py", globals(), only=(
-    "test_people_count_api", "test_server_dashboards_serve_and_poll_own_api",
+    "test_recalibrate_int8_route", "test_people_count_api", "test_server_dashboards_serve_and_poll_own_api",
     "test_dashboard_field_contract", "test_control_apis_enable_cors",
     "test_dashboard_inline_scripts_parse_sane", "test_people_count_bad_int_params_are_400"))
 

@@ -687,3 +687,59 @@ def test_enrollment_and_counting_threads_bind_to_the_engines_card(cuda, monkeypa
     assert not thread.is_alive()
     streams.stop_all()
     assert len(Probe.seen) == 2 and set(Probe.seen) == {card.index}
+
+
+# (B, H, W, Cin, Cout, kernel, stride, pad): IResNet-50's block convs at
+# each stage (block 0's Conv_0 / Conv_1 / Conv_2 and a stage-4 conv, 7x7 with
+# M = 49 rows at B = 1), det_10g's stem1 (K = 27, Cout 28), stem2 (K = 252),
+# stem3 and a stage downsample at 640x640
+INT8_CONV_SHAPES = [(32, 112, 112, 64, 64, 3, 1, 1), (32, 112, 112, 64, 64, 3, 2, 1),
+                    (32, 112, 112, 64, 64, 1, 2, 0), (32, 56, 56, 64, 128, 3, 2, 1),
+                    (32, 28, 28, 128, 256, 3, 2, 1), (32, 14, 14, 256, 512, 3, 2, 1),
+                    (1, 7, 7, 512, 512, 3, 1, 1), (8, 640, 640, 3, 28, 3, 2, 1),
+                    (8, 320, 320, 28, 28, 3, 1, 1), (8, 320, 320, 28, 56, 3, 1, 1),
+                    (8, 80, 80, 56, 88, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("shape", INT8_CONV_SHAPES)
+def test_int8_conv_on_the_card_is_exact(cuda, shape, monkeypatch):
+    """int8_conv2d_nhwc runs torch._int_mm on the card (never another
+    path) and equals the float64 convolution bit for bit."""
+    from facerecognition_infrenceengine_tpu_torch.ops import int8_conv
+
+    b, h, w, ci, co, k, s, p = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x8 = torch.randint(-127, 128, (b, h, w, ci), dtype=torch.int8, device=cuda, generator=gen)
+    w8 = torch.randint(-127, 128, (k, k, ci, co), dtype=torch.int8, device=cuda, generator=gen)
+    seen = []
+    real = torch._int_mm
+
+    def spy(a, m):
+        seen.append((a.device.type, m.device.type))
+        return real(a, m)
+
+    monkeypatch.setattr(torch, "_int_mm", spy)
+    got = int8_conv.int8_conv2d_nhwc(x8, w8, s, p)
+    assert seen and all(d == ("cuda", "cuda") for d in seen)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert torch.equal(got, int8_conv.int8_conv2d_exact(x8, w8, s, p))
+
+
+def test_int8_embedder_on_the_card_is_close_to_bf16(cuda):
+    """An embed_int8 IResNet-50 engine's embeddings lie within min cosine
+    0.98 of the bf16 engine's (the reference's bound, tests/test_quant.py:51)
+    on 32 structured crops."""
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import (
+        FaceEngine, _calibration_crops)
+
+    crops = _calibration_crops(32, 112, seed=7)
+    embs = []
+    for q in (False, True):
+        e = FaceEngine(EngineConfig(det_size=(64, 64), embed_int8=q), det_arch="det_500m",
+                       rec_arch="r50", device=cuda)
+        assert ("int8" in e.rec_variables) == q
+        embs.append(e.embed_crops(crops))
+    cos = (embs[0] * embs[1]).sum(1)
+    assert cos.min() >= 0.98, cos
+    assert not np.allclose(embs[0], embs[1], atol=1e-6)

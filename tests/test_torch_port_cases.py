@@ -13,6 +13,10 @@ they call, the names of its imports they read -- is kept, recursively; the
 rest of the file, its imports of modules the port does not have among them,
 is dropped before it runs.
 
+``unmark=("slow",)`` drops those ``pytest.mark`` decorators from the cases:
+a case the reference marks slow for its compile time can run in the port's
+quick tier when the port's form of it is quick.
+
 Several files can go into one module.  A module-level name that a file
 binds and an earlier file in the same module bound too (each file's own
 ``app`` and ``client`` fixtures, say) is renamed throughout the later file
@@ -130,11 +134,22 @@ class _Rename(ast.NodeTransformer):
     visit_FunctionDef = visit_AsyncFunctionDef = visit_ClassDef = _visit_def
 
 
-def exec_port_cases(name: str, namespace: dict, only=None) -> None:
+def _is_mark(node, names) -> bool:
+    """Whether a decorator is ``pytest.mark.<one of names>`` (called or not)."""
+    if isinstance(node, ast.Call):
+        node = node.func
+    return (isinstance(node, ast.Attribute) and node.attr in names
+            and isinstance(node.value, ast.Attribute) and node.value.attr == "mark")
+
+
+def exec_port_cases(name: str, namespace: dict, only=None, unmark=()) -> None:
     path = os.path.join(TESTS, name)
     tree = ast.parse(port_source(name), path)
     if only is not None:
         tree = _select(tree, only)
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            node.decorator_list = [d for d in node.decorator_list if not _is_mark(d, unmark)]
     bound = set().union(*(_bound(n) for n in tree.body))
     earlier = namespace.setdefault("_port_case_names", set())
     clash = {n: f"{n}__{os.path.splitext(name)[0]}" for n in bound & earlier}

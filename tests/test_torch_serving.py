@@ -102,8 +102,29 @@ def test_engine_config_serving_fields_are_the_reference_defaults():
         assert type(getattr(port, name)) is type(getattr(ref, name))
     ref_fields = {f.name for f in dataclasses.fields(ref)}
     port_fields = {f.name for f in dataclasses.fields(port)}
-    # the scale modes of ROADMAP Queue 1 item 4 are the only ones missing
-    assert ref_fields - port_fields == {"embed_int8", "det_int8", "packed_stem"}
+    # every field of the reference's, the scale modes of ROADMAP Queue 1 item 4
+    # among them, with its default and type
+    assert ref_fields - port_fields == set()
+    for name in ("embed_int8", "det_int8", "packed_stem", "packed_stem_impl"):
+        assert getattr(port, name) == getattr(ref, name)
+        assert type(getattr(port, name)) is type(getattr(ref, name))
+
+
+def test_scale_mode_fields_reach_the_engine_config():
+    """The three scale-mode fields and packed_stem_impl="xla" go through the
+    process config to the facade's EngineConfig, as the serving fields do;
+    an unknown packed-stem strategy is refused."""
+    modes = dict(embed_int8=True, det_int8=True, packed_stem=True, packed_stem_impl="xla")
+    before = config.get_config()
+    config.set_config(config.Config(engine=config.EngineConfig(**modes)))
+    try:
+        got = zoo.FaceAnalysis().cfg
+    finally:
+        config.set_config(before)
+    assert {k: getattr(got, k) for k in modes} == modes
+    assert dataclasses.replace(config.EngineConfig(), **modes) == config.EngineConfig(**modes)
+    with pytest.raises(ValueError):
+        config.EngineConfig(packed_stem_impl="cudnn")
 
 
 # ------------------------------------------------------------ the cameras
@@ -339,6 +360,43 @@ def test_build_app_answers_every_route_as_the_reference(engines, tmp_path, monke
     assert [b for _, _, _, b, _ in got if isinstance(b, dict) and "message" in b] == \
         [b for _, _, _, b, _ in want if isinstance(b, dict) and "message" in b]
     assert os.listdir(str(tmp_path / "port"))  # the torch.profiler trace
+
+
+def test_recalibrate_route_reaches_a_real_int8_engine():
+    """/api/engine/recalibrate-int8 with three crops (one at 96x96, resized
+    to 112 by the route) on a real embed_int8 engine: the engine's
+    calibration becomes "user(3 crops)", its scales are the ones
+    ``models/quant.calibrate`` derives from the decoded crops, and the next
+    embedding serves with them."""
+    from facerecognition_infrenceengine_tpu_torch import native
+    from facerecognition_infrenceengine_tpu_torch.models import arcface, quant
+
+    twin = Twin()
+    cfg = dataclasses.replace(twin.cfg, engine=config.EngineConfig(**KW, embed_int8=True))
+    engine = FaceEngine(cfg.engine, device="cpu", **ARCH)
+    assert "int8" in engine.rec_variables
+    assert engine._int8_calibration == "synthetic-structured"
+    s0 = engine._embed_scales
+    probe = np.stack(_frames(41, 2, 112, 112))
+    before = engine.embed_crops(probe)
+    app = zoo.FaceAnalysis(cfg=cfg.engine, engine=engine, allowed_modules=MODULES)
+    gallery = GalleryManager(twin.stores[1][0], cfg)
+    cm = CameraManager(gallery, face_app=app, cfg=cfg)
+    client = inference_server.build_app(gallery, cm).test_client()
+    pngs = [_png(1), _png(2), _png(3, hw=96)]
+    r = client.post("/api/engine/recalibrate-int8",
+                    files={f"c{k}": (f"c{k}.png", b, "image/png") for k, b in enumerate(pngs)})
+    assert r.status_code == 200, r.get_json()
+    assert r.get_json() == {"status": "success", "crops": 3, "calibration": "user(3 crops)"}
+    assert engine._int8_calibration == "user(3 crops)"
+    decoded = [native.decode_image(b) for b in pngs]
+    decoded[2] = native.resize_bilinear(decoded[2], 112, 112)
+    want = quant.calibrate(engine.embedder, arcface.preprocess(torch.from_numpy(
+        np.stack(decoded))), depths=(2, 2, 2, 2), dtype=torch.float32)
+    assert engine._embed_scales == want and want != s0
+    after = engine.embed_crops(probe)
+    assert not np.array_equal(after, before)
+    np.testing.assert_array_equal(after, engine.embed_crops(probe))
 
 
 # ------------------------------------------------------ upload on submit

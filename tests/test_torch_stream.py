@@ -76,8 +76,10 @@ def test_config_fields():
     cfg = EngineConfig()
     assert (cfg.stem_kernel, cfg.packed_stem_impl, cfg.stream_transport) == ("off", "unpack", "rgb")
     assert cfg.gallery_dtype == "float32"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        EngineConfig(packed_stem_impl="xla")
+    assert (cfg.packed_stem, cfg.embed_int8, cfg.det_int8) == (False, False, False)
+    assert EngineConfig(packed_stem_impl="xla").packed_stem_impl == "xla"
+    with pytest.raises(ValueError, match="packed_stem_impl"):
+        EngineConfig(packed_stem_impl="cudnn")
     assert not FaceEngine(EngineConfig(**dict(KW, stem_kernel="auto")), device="cpu",
                           **ARCH)._stem_kernel_raw
 
