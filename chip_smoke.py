@@ -130,6 +130,24 @@ Phases, one flushed line each:
    them), timed in turns, beside atlas_ms.  K1's wrapper is also timed at
    B = 1 with its scratch cache emptied before every call (`ms_uncached`):
    the per-call allocations and library lookups the cache removes.
+10b. [mesh] (after the gallery phase): the sharded gallery and
+   make_sharded_fused over a mesh of the distinct cards, or of cuda:0 named
+   8 times (data 2 x gallery 4) on one card.  The gallery phase's 50,000
+   persons in f32, bf16 and int8 through GalleryManager(mesh=...) against
+   the same manager without a mesh at B = 1, 32, 256: k = 1 ids identical,
+   scores within 1e-5 (f32, bf16) / 2e-2 (int8), K1 or K2 once a shard;
+   k = 3 ids identical at every rank clear of its neighbours; each shard's
+   kernel against the plain per-shard merge on the CPU.  Then
+   make_sharded_fused("raw", "flat" on the rgb engine, "yuv_flat" on the
+   yuv engine with K4) on request 1's 8 frames: every data shard bit-equal
+   to the unsharded engine on its own frames, its outputs on its device.
+10c. [train]: engine/training.py on IResNet-50 at full width (112x112,
+   f32, TF32 off), B = 128, 93,431 classes (MS1MV3's identity count): one
+   step against the same step on a data 2 x gallery 2 mesh, fit over 20
+   steps (the loss falls; step ms, images/s, peak memory, the step's FLOPs
+   and f32 bound; the step with TF32 on, timed only), the checkpoint round
+   trip bit for bit, and a resumed
+   run against the uninterrupted one with cudnn.deterministic on.
 11. [int8] (after the kernels' own traces): the opt-in scale modes at
    buffalo_l's full width (det_10g + r50, bf16, 640x640, max_faces 32,
    pre_nms_topk 512), each variant FaceAnalysis.get_batch + match_faces
@@ -2731,6 +2749,432 @@ def int8_phase(torch, card: str, requests: list, cfg, app, yapp) -> dict:
     return out
 
 
+# --------------------------------------------------- the mesh and the trainer
+MESH_BATCHES = (1, 32, 256)     # the [mesh] phase's query batches
+MESH_DATA, MESH_GALLERY = 2, 4  # the mesh on one card: cuda:0 named 8 times
+TRAIN_CLASSES = 93_431          # MS1MV3's identities (arcface_torch configs/ms1mv3_r50.py)
+TRAIN_BATCH = 128
+TRAIN_STEPS = 20
+TRAIN_PROTOTYPES = 48           # the synthetic crops' identities
+TRAIN_LR = 1e-3                 # SGD lr (momentum 0.9): an IResNet-18 rehearsal on the CPU
+                                # (B = 16, 1,000 classes) fell at 1e-3 and 1e-2, rose at 0.1
+RESUME_STEPS = 4                # the resume check: 2 steps, a checkpoint, 2 more
+
+
+def mesh_of(torch):
+    """The distinct cards when there are two or more (data 2 where their
+    count is even), else cuda:0 named MESH_DATA x MESH_GALLERY times ->
+    (mesh, a line saying which)."""
+    from facerecognition_infrenceengine_tpu_torch.parallel import build_mesh
+
+    n = torch.cuda.device_count()
+    if n >= 2:
+        data = 2 if n % 2 == 0 else 1
+        return (build_mesh([torch.device("cuda", i) for i in range(n)], data=data,
+                           gallery=n // data), f"{n} distinct cards, data {data} x gallery "
+                                               f"{n // data}")
+    return (build_mesh([torch.device("cuda", 0)] * (MESH_DATA * MESH_GALLERY), data=MESH_DATA,
+                       gallery=MESH_GALLERY),
+            f"1 card: cuda:0 named {MESH_DATA * MESH_GALLERY} times, data {MESH_DATA} x "
+            f"gallery {MESH_GALLERY} (no copy crosses cards)")
+
+
+def _clear_ranks(scores: np.ndarray, tol: float) -> np.ndarray:
+    """[B, k] mask of the ranks whose score lies more than tol from the
+    scores beside it (scores [B, k + 1], descending): there a change of
+    summation order or of quantization cannot reorder the ids."""
+    gaps = scores[:, :-1] - scores[:, 1:]
+    before = np.concatenate([np.full((len(scores), 1), np.inf), gaps[:, :-1]], axis=1)
+    return (before > tol) & (gaps > tol)
+
+
+def mesh_phase(torch, card: str, ids: list, matrix: np.ndarray, engine, yapp,
+               frames_bgr: list) -> dict:
+    """[mesh]: the sharded gallery and make_sharded_fused on the card.
+
+    a. The [gallery] phase's 50,000 persons (capacity 65,536) in f32, bf16
+       and int8, through GalleryManager(mesh=...) against the same manager
+       without a mesh, at B = 1, 32, 256: k = 1 ids identical and scores
+       within 1e-5 (f32, bf16) / 2e-2 (int8), K1 / K2 once a shard a match;
+       k = 3 ids identical at every rank clear of its neighbours by that
+       tolerance; each shard's kernel held against the plain per-shard merge
+       on the CPU (K2 bit for bit, K1 within 1e-5).
+    b. FaceEngine.make_sharded_fused on buffalo_l (det_10g + r50, bf16,
+       640x640, max_faces 32), 8 frames over the data axis: "raw", "flat"
+       and "yuv_flat" (K4): every data shard bit-equal to the unsharded
+       engine on that shard's frames alone, its outputs on its shard's
+       device."""
+    from facerecognition_infrenceengine_tpu_torch.core.config import Config, EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import letterbox
+    from facerecognition_infrenceengine_tpu_torch.ops import match_kernel, stem_kernel, warp_kernel
+    from facerecognition_infrenceengine_tpu_torch.parallel import topk
+    from facerecognition_infrenceengine_tpu_torch.parallel.sharding import RowShards
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore
+
+    t_phase = time.perf_counter()
+    mesh, which = mesh_of(torch)
+    shards = mesh.shape["gallery"]
+    say(f"[mesh] {card} | mesh {which}")
+    out = {"card": card, "mesh": which, "gallery": {}, "fused": {}}
+    # the phase's path launches: one k = 1 match a dtype and batch, one run
+    # of each make_sharded_fused variant (not the timing loops, the warm-ups
+    # or the comparisons with the plain versions)
+    launches = {"gallery_top1": 0, "gallery_top1_int8": 0, "warp_rois": 0,
+                "warp_windows_packed": 0, "fused_stem": 0}
+    rng = np.random.default_rng(12)
+    q_all = matrix[:max(MESH_BATCHES)] + 0.02 * rng.normal(size=(max(MESH_BATCHES), 512))
+    q_all = (q_all / np.linalg.norm(q_all, axis=1, keepdims=True)).astype(np.float32)
+    meta = {pid: {"type": "employee", "name": pid} for pid in ids}
+    for dtype in ("float32", "bfloat16", "int8"):
+        cfg = Config(engine=EngineConfig(gallery_dtype=dtype))
+        local = GalleryManager(Datastore(cfg), cfg, initial_load=False, device="cuda")
+        sharded = GalleryManager(Datastore(cfg), cfg, initial_load=False, mesh=mesh)
+        local.set_snapshot(ids, meta, matrix, company_id="m")
+        snap = sharded.set_snapshot(ids, meta, matrix, company_id="m")
+        parts = snap.device_matrix
+        check(isinstance(parts, RowShards) and len(parts) == shards
+              and snap.device_matrix.dtype == {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                                               "int8": torch.int8}[dtype]
+              and snap.device_matrix.shape[0] == CAPACITY,
+              f"[mesh] {dtype} snapshot: {type(parts).__name__} {snap.device_matrix.shape}")
+        tol = 2e-2 if dtype == "int8" else 1e-5
+        kernel = match_kernel.gallery_top1_int8 if dtype == "int8" else match_kernel.gallery_top1
+        row = {}
+        for b in MESH_BATCHES:
+            q = q_all[:b]
+            kernel.launches = 0
+            s_sh, id_sh, _ = sharded.match(q, company_id="m")
+            per_match = kernel.launches
+            launches[kernel.__name__] += per_match
+            s_lo, id_lo, _ = local.match(q, company_id="m")
+            check(per_match == shards, f"[mesh] {dtype} B={b}: {per_match} launches, want "
+                                       f"one a shard ({shards})")
+            err = float(np.abs(s_sh - s_lo).max())
+            check(id_sh == id_lo and err <= tol, f"[mesh] {dtype} B={b} k=1: ids "
+                  f"{sum(a != c for a, c in zip(id_sh, id_lo))} apart, scores {err}")
+            s3, id3, _ = sharded.match(q, company_id="m", k=3)
+            s4, id4, _ = local.match(q, company_id="m", k=4)
+            clear = _clear_ranks(s4, tol)
+            same = np.array([[a == c for a, c in zip(r3, r4[:3])] for r3, r4 in zip(id3, id4)])
+            check(same[clear].all(), f"[mesh] {dtype} B={b} k=3: {int((~same & clear).sum())} "
+                                     f"clear ranks differ")
+            ms = time_ms(torch, lambda: sharded.match(q, company_id="m"), 10)
+            ms_local = time_ms(torch, lambda: local.match(q, company_id="m"), 10)
+            row[b] = {"k1_scores_max_diff": err, "k3_ranks_compared": int(clear.sum()),
+                      "k3_ranks_unclear": int((~clear).sum()), "launches_per_match": per_match,
+                      "ms": ms, "ms_unsharded": ms_local}
+        # each shard's kernel against the plain per-shard merge on the CPU
+        qb = torch.from_numpy(q_all)
+        scale = snap.int8_scale if dtype == "int8" else None
+        kv, ki = topk.distributed_top1_fused(qb.cuda(), parts, snap.size, int8_scale=scale)
+        pv, pi = topk.distributed_top1_fused_plain(qb, parts, snap.size, scale)
+        kv, ki = kv.cpu(), ki.cpu()
+        perr = float((kv - pv).abs().max())
+        if dtype == "int8":
+            check(torch.equal(kv, pv) and torch.equal(ki, pi),
+                  f"[mesh] K2 a shard differs from its plain version ({perr})")
+        else:
+            plain_scores = np.sort((qb.to(parts.dtype).float() @ parts.gather("cpu").float().T)
+                                   [:, :snap.size].numpy(), axis=1)[:, ::-1][:, :2]
+            clear1 = (plain_scores[:, 0] - plain_scores[:, 1]) > 1e-5
+            check(perr <= 1e-5 and torch.equal(ki[clear1], pi[clear1]),
+                  f"[mesh] K1 {dtype} a shard against its plain version: {perr}")
+        row["plain_max_abs_err"] = perr
+        out["gallery"][dtype] = row
+        say(f"[mesh] {card} | {dtype} gallery of {snap.size} in {shards} shards of "
+            f"{parts.parts[0].shape[0]} rows: " + "; ".join(
+                f"B={b} {r['ms']:.3f} ms ({r['ms_unsharded']:.3f} unsharded), "
+                f"{r['launches_per_match']} {kernel.__name__} launches (one a shard), k=1 "
+                f"scores {r['k1_scores_max_diff']:.2e} apart, k=3 {r['k3_ranks_compared']} "
+                f"clear ranks identical" for b, r in row.items() if isinstance(b, int))
+            + f"; kernels against the plain shards {perr:.2e}")
+        del local, sharded, snap, parts
+
+    # b. make_sharded_fused on the rgb engine (raw, flat) and the yuv one (K4)
+    yengine = yapp._ensure_engine()
+    canvases = np.stack([letterbox(np.ascontiguousarray(f[..., ::-1]), engine.cfg.det_size)[0]
+                         for f in frames_bgr])
+    packs = np.stack([yapp.encode_frame(f) for f in frames_bgr])
+    data = mesh.shape["data"]
+    step = len(frames_bgr) // data
+    for variant, eng, x in (("raw", engine, canvases), ("flat", engine, canvases),
+                            ("yuv_flat", yengine, packs)):
+        run = eng.make_sharded_fused(mesh, variant)
+        run(x, DET_THRESH)  # warm-up
+        torch.cuda.synchronize()
+        warp_kernel.warp_rois.launches = 0
+        stem_kernel.fused_stem.launches = 0
+        t0 = time.perf_counter()
+        got = run(x, DET_THRESH)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        k3, k4 = warp_kernel.warp_rois.launches, stem_kernel.fused_stem.launches
+        single = {"raw": eng.detect_align_embed, "flat": eng.detect_align_embed_flat,
+                  "yuv_flat": eng.detect_align_embed_yuv420_flat}[variant]
+        t0 = time.perf_counter()  # the unsharded program on all the frames
+        single(x, DET_THRESH)
+        torch.cuda.synchronize()
+        wall_single = (time.perf_counter() - t0) * 1e3
+        launches["warp_windows_packed" if variant == "yuv_flat" else "warp_rois"] += k3
+        launches["fused_stem"] += k4
+        check(k3 == data and k4 == (data if variant == "yuv_flat" else 0),
+              f"[mesh] {variant}: K3 {k3}, K4 {k4} launches for {data} data shards")
+        outs = got if variant == "raw" else (got,)
+        for i in range(data):
+            want = single(x[i * step:(i + 1) * step], DET_THRESH)
+            want = want if variant == "raw" else (want,)
+            check(all(torch.equal(o.parts[i], w) for o, w in zip(outs, want)),
+                  f"[mesh] {variant}: data shard {i} differs from the unsharded engine on its "
+                  f"{step} frames")
+            check(all(o.parts[i].device == mesh.devices[i, 0] for o in outs),
+                  f"[mesh] {variant}: shard {i}'s outputs left its device")
+        valid = (got[3].gather() if variant == "raw" else got.gather()[..., 15] > 0.5)
+        out["fused"][variant] = {"ms": wall, "ms_unsharded": wall_single, "k3_launches": k3,
+                                 "k4_launches": k4, "valid_slots": int(valid.sum())}
+        say(f"[mesh] {card} | make_sharded_fused({variant!r}) on {len(x)} frames over {data} "
+            f"data shards: {wall:.2f} ms ({wall_single:.2f} ms unsharded, all {len(x)} frames "
+            f"in one program), K3 {k3} launches, K4 {k4}; each shard bit-equal to "
+            f"the unsharded engine on its {step} frames and left on its device "
+            f"({int(valid.sum())} valid slots)")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[mesh] launches in the phase {launches}; phase {out['phase_s']:.1f} s")
+    return out
+
+
+def iresnet_flops(model, side: int) -> float:
+    """A forward's multiply-adds x 2 for one image (convs and the dense
+    layer), from the module's shapes."""
+    import torch
+
+    flops = 0.0
+
+    def hook(mod, inp, out):
+        nonlocal flops
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels // mod.groups
+            flops += 2.0 * k * out.numel() / out.shape[0]
+        elif isinstance(mod, torch.nn.Linear):
+            flops += 2.0 * mod.in_features * mod.out_features
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            p = next(model.parameters())
+            model.eval()(torch.zeros((1, side, side, 3), device=p.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return flops
+
+
+def _state_errors(torch, got: dict, want: dict, start: dict | None = None) -> dict:
+    """How far two training states are apart, each part as one vector:
+    ||got - want|| / ||want|| (L2 over all its leaves; for the params, of
+    the step's update from ``start`` when given).  A leaf's own largest
+    error says little: a BatchNorm bias's gradient sums ~10^8 terms that
+    cancel to a small value, whose f32 error is set by the terms."""
+    from facerecognition_infrenceengine_tpu_torch.parallel.sharding import RowShards
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", (v.gather() if isinstance(v, RowShards) else v).double()
+
+    errs = {}
+    for part in ("params", "batch_stats", "opt_state"):
+        g, w = dict(leaves(got[part])), dict(leaves(want[part]))
+        if part == "params" and start is not None:
+            s0 = dict(leaves(start[part]))
+            g = {k: g[k] - s0[k].to(g[k].device) for k in g}
+            w = {k: w[k] - s0[k].to(w[k].device) for k in w}
+        num = sum(float(((g[k].to(w[k].device) - w[k]) ** 2).sum()) for k in w)
+        den = sum(float((w[k] ** 2).sum()) for k in w)
+        errs[part] = (num / den) ** 0.5 if den else num ** 0.5
+    return errs
+
+
+def _state_equal(torch, a: dict, b: dict) -> bool:
+    """Every leaf of two training states bit-equal (row shards shard by
+    shard)."""
+    from facerecognition_infrenceengine_tpu_torch.parallel.sharding import RowShards
+
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(_state_equal(torch, a[k], b[k]) for k in b)
+    if isinstance(b, RowShards):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a.parts, b.parts))
+    return torch.equal(a, b)
+
+
+def train_phase(torch, card: str) -> dict:
+    """[train]: engine/training.py at full width on the card.
+
+    IResNet-50 (112x112, embedding 512, the seeded synthetic weights), f32
+    with TF32 off, B = 128, 93,431 classes; synthetic crops of a few dozen
+    prototypes made on the card.  One step with no mesh against the same
+    step on a data 2 x gallery 2 mesh from one state (relative, see
+    ``_state_errors``: the loss and the batch statistics within 1e-5, the
+    params within 1e-5, the gradient -- the momentum after one step --
+    within 5e-3: a batch permutation alone moves an IResNet-18 step's f32
+    gradient by 1.4e-4 on the CPU, and the same unsharded step on the
+    batch permuted is printed beside it); fit
+    over 20 steps at lr 1e-3 (the
+    loss falls; step ms, images/s, peak memory; the step with TF32 on,
+    timed only); the checkpoint round trip
+    bit for bit; a resumed run against the uninterrupted one with
+    cudnn.deterministic on for that check (bit for bit, else within 1e-4
+    relative, printed)."""
+    from facerecognition_infrenceengine_tpu_torch.engine import training
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+    from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
+    from facerecognition_infrenceengine_tpu_torch.parallel import build_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {"card": card, "classes": TRAIN_CLASSES, "batch": TRAIN_BATCH}
+    model = load_or_init("arcface_r50", arcface.iresnet50(), 1).to(dev)
+    flops = iresnet_flops(model, 112) * 3 * TRAIN_BATCH + 3 * 2.0 * TRAIN_BATCH * \
+        TRAIN_CLASSES * 512
+    gen = torch.Generator(device=dev).manual_seed(13)
+    protos = torch.randn((TRAIN_PROTOTYPES, 112, 112, 3), generator=gen, device=dev)
+
+    def batch():
+        labels = torch.randint(0, TRAIN_PROTOTYPES, (TRAIN_BATCH,), generator=gen, device=dev)
+        noise = torch.randn((TRAIN_BATCH, 112, 112, 3), generator=gen, device=dev)
+        return protos[labels] + 0.1 * noise, labels
+
+    t0 = time.perf_counter()
+    state, opt = training.make_train_state(model, TRAIN_CLASSES, protos[:2], seed=0,
+                                           learning_rate=TRAIN_LR)
+    torch.cuda.synchronize()
+    out["state_s"] = time.perf_counter() - t0
+    step = training.make_train_step(model, opt)
+    mesh = build_mesh([dev] * 4, data=2, gallery=2)
+    mstep = training.make_train_step(model, opt, mesh=mesh)
+    images, labels = batch()
+    new, loss = step(state, images, labels)
+    mnew, mloss = mstep(state, images, labels)
+    # the f32 spread of one step under a change of summation order alone:
+    # the same unsharded step on the batch in another order
+    perm = torch.randperm(TRAIN_BATCH, generator=gen, device=dev)
+    permuted, _ = step(state, images[perm], labels[perm])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the mesh step again, warm: its wall time
+    mstep(state, images, labels)
+    torch.cuda.synchronize()
+    out["mesh_step_ms"] = (time.perf_counter() - t0) * 1e3
+    errs = _state_errors(torch, mnew, new, start=state)
+    spread = _state_errors(torch, permuted, new, start=state)
+    p_err = _state_errors(torch, mnew, new)["params"]
+    lerr = abs(float(mloss) - float(loss)) / abs(float(loss))
+    out["mesh_vs_unsharded"] = {"loss_rel": lerr, "params_rel": p_err, "update_rel": errs["params"],
+                                "batch_stats_rel": errs["batch_stats"],
+                                "gradient_rel": errs["opt_state"]}
+    out["batch_order_spread"] = {"update_rel": spread["params"],
+                                     "batch_stats_rel": spread["batch_stats"],
+                                     "gradient_rel": spread["opt_state"]}
+    say(f"[train] {card} | IResNet-50 112x112 f32 (TF32 off), B={TRAIN_BATCH}, "
+        f"{TRAIN_CLASSES} classes (W {TRAIN_CLASSES * 512 * 4 / 1e6:.0f} MB): one step, loss "
+        f"{float(loss):.4f}; the data 2 x gallery 2 mesh step from the same state: loss "
+        f"{lerr:.2e} apart, params {p_err:.2e}, batch_stats {errs['batch_stats']:.2e}, the "
+        f"gradient (the momentum after the step) {errs['opt_state']:.2e}, the params' update "
+        f"{errs['params']:.2e} (relative L2); the unsharded step on the batch in another "
+        f"order against it: gradient {spread['opt_state']:.2e}, batch_stats "
+        f"{spread['batch_stats']:.2e}; the mesh step {out['mesh_step_ms']:.1f} ms on one card")
+    check(lerr <= 1e-5 and p_err <= 1e-5 and errs["batch_stats"] <= 1e-5
+          and errs["opt_state"] <= 5e-3, f"[train] the mesh step differs: {out['mesh_vs_unsharded']}")
+    check(np.isfinite(float(loss)), "[train] non-finite loss")
+    del new, mnew, permuted
+
+    # fit: the step's time, rate and memory
+    batches = [batch() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+
+    def timed(s, x, y):
+        t = time.perf_counter()
+        s2, l2 = step(s, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return s2, l2
+
+    fitted, losses = training.fit(timed, state, batches, log_every=0)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steady = sorted(times[2:])
+    step_ms = steady[len(steady) // 2]
+    bound_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    out.update(step_ms=step_ms, step_ms_all=list(times),
+               images_per_s=TRAIN_BATCH / step_ms * 1e3,
+               peak_memory_mb=peak, losses=losses, flops_per_step=flops, bound_ms=bound_ms,
+               bound_by="operations")
+    say(f"[train] {card} | fit {TRAIN_STEPS} steps: loss {losses[0]:.3f} -> {losses[-1]:.3f} "
+        f"(first five {np.mean(losses[:5]):.3f}, last five {np.mean(losses[-5:]):.3f}); step "
+        f"{step_ms:.2f} ms (p50 of steps 3-{TRAIN_STEPS}; first {times[0]:.1f} ms), "
+        f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s, peak memory {peak:.0f} MiB; "
+        f"{flops / 1e12:.3f} TFLOP a step, bound {bound_ms:.2f} ms at the f32 peak "
+        f"({100 * bound_ms / step_ms:.0f}%)")
+    check(all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"[train] the loss did not fall: {losses}")
+    # what TF32 off costs: the same steps with TF32 on, for this measure only
+    # (the port's f32 programs are held to true f32)
+    times.clear()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        training.fit(timed, state, batches[:6], log_every=0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out["step_ms_tf32"] = sorted(times[2:])[len(times[2:]) // 2]
+    say(f"[train] {card} | the same step with TF32 on (this measure only): "
+        f"{out['step_ms_tf32']:.2f} ms (p50 of steps 3-6) against {step_ms:.2f} ms with it off")
+
+    # the checkpoint round trip and the resume
+    ckpt = tempfile.mkdtemp(prefix="fre_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        training.save_checkpoint(ckpt, fitted, TRAIN_STEPS)
+        back, at = training.restore_checkpoint(ckpt, target=fitted)
+        torch.cuda.synchronize()
+        out["checkpoint_s"] = time.perf_counter() - t0
+        check(at == TRAIN_STEPS and _state_equal(torch, back, fitted),
+              "[train] the restored checkpoint differs from the saved state")
+        del back
+        shutil.rmtree(ckpt)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            run = batches[:RESUME_STEPS]
+            whole, l_whole = training.fit(step, state, run, log_every=0)
+            half = RESUME_STEPS // 2
+            training.fit(step, state, run[:half], ckpt_dir=ckpt, log_every=0)
+            restored, at = training.restore_checkpoint(ckpt, target=state)
+            resumed, l_res = training.fit(step, restored, run[half:], ckpt_dir=ckpt,
+                                          log_every=0, start_step=at)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        rerr = _state_errors(torch, resumed, whole)
+        exact = _state_equal(torch, resumed, whole) and l_res == l_whole[half:]
+        out["resume"] = {"bit_exact": exact, **rerr}
+        check(at == half and training.restore_checkpoint(ckpt)[1] == RESUME_STEPS
+              and max(rerr.values()) <= 1e-4, f"[train] resume: {out['resume']}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    say(f"[train] {card} | checkpoint of {TRAIN_STEPS} steps saved and restored bit for bit in "
+        f"{out['checkpoint_s']:.2f} s; resumed {half} + {half} steps against {RESUME_STEPS} "
+        f"uninterrupted (cudnn.deterministic on for this check): " + (
+            "bit for bit" if exact else f"not bit for bit, within {max(rerr.values()):.2e} "
+                                        f"(relative L2)"))
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[train] phase {out['phase_s']:.1f} s")
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -3496,6 +3940,15 @@ def main() -> int:
                   "gallery_top1_int8": match_kernel.gallery_top1_int8.launches}
     say(f"[gallery] launches in the phase {g_launches}")
 
+    # ------------------------------------------------- the mesh and the trainer
+    # the sharded gallery (the [gallery] phase's 50,000 persons) and
+    # make_sharded_fused on a mesh, then engine/training.py at full width;
+    # their launches join the kernels line
+    mesh_out = mesh_phase(torch, card, g_ids, np.concatenate([own_vecs, g_dis]).astype(
+        np.float32), engine, yapp, requests[0])
+    train_out = train_phase(torch, card)
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------- kernels vs plain, card
     roi = warp2pass.ROI
 
@@ -4182,6 +4635,8 @@ def main() -> int:
     for run in server_runs:
         say(json.dumps({"server_path": dict(run, entry_point=entry["inference_server"])}))
     say(json.dumps({"int8_path": int8}))
+    say(json.dumps({"mesh_path": mesh_out}))
+    say(json.dumps({"train_path": train_out}))
     say(json.dumps({"enroll_path": enroll}))
     say(json.dumps({"count_path": count}))
     say(json.dumps({"entry_points": entry}))
@@ -4204,9 +4659,11 @@ def main() -> int:
                 k["launches"] += by_size.get(k["out_size"], 0)
             elif k["name"] == "gallery_top1":
                 k["launches"] += k1
-    # and the [int8] phase's (K3 at 112, raw and packed, and K1)
+    # and the [int8] phase's (K3 at 112, raw and packed, and K1) and the
+    # [mesh] phase's (K1 and K2 once a shard, K3 and K4 once a data shard)
     for k in kernels:
         k["launches"] += int8["launches"].get(k["name"], 0)
+        k["launches"] += mesh_out["launches"].get(k["name"], 0)
     say(json.dumps({"kernels": kernels}))
     say(f"[done] {card} | the script took {time.perf_counter() - t_script:.1f} s")
     say(card_line())

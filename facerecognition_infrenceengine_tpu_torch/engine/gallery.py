@@ -13,6 +13,15 @@ card: K1 accumulates with FFMA, and the snapshot keeps no bf16 or TF32 copy
 (the reference caches a bf16 scoring copy on a TPU only, where its f32
 matmul rounds to bf16 anyway).
 
+With a mesh (``parallel/sharding.build_mesh``) whose gallery axis divides
+the padded capacity, the matrix is row shards on the axis's devices
+(``RowShards``) and a match runs the same policy on each shard through
+``parallel/topk.py``: K1 / K2 a shard for k == 1, ``distributed_topk_int8``
+(int8, no dequantized copy) or ``distributed_topk`` for k > 1; a delta
+scatters each row into its shard.  A mesh that does not divide the
+capacity (a 6-way axis against ``block * 2**k``) serves through the
+single-device kernels, as the reference does.
+
 ``GalleryManager`` loads every active, non-blacklisted employee and every
 visitor with a finished buffalo_l embedding from the datastore, L2-normalizes
 them and keeps them in sync by ``lastUpdated`` delta polling on a background
@@ -38,6 +47,8 @@ from ..core.device import resolve_device
 from ..core.serialization import deserialize_embedding
 from ..ops.match_kernel import gallery_top1, gallery_top1_int8, quantize_gallery
 from ..ops.matching import cosine_topk
+from ..parallel.sharding import AXIS_GALLERY, RowShards, gallery_sharding
+from ..parallel.topk import distributed_top1_fused, distributed_topk, distributed_topk_int8
 from ..store.client import Datastore
 from ..store.objectid import ObjectId
 from .pipeline import bucket
@@ -65,12 +76,30 @@ def _prefix_mask(cap: int, n: int, device) -> torch.Tensor:
     return torch.arange(cap, device=device) < n
 
 
-def _scatter_rows(matrix: torch.Tensor, rows: np.ndarray, vals: np.ndarray) -> torch.Tensor:
+def _mask_like(matrix, n: int):
+    """The prefix mask of n live rows, placed as ``matrix`` is (one mask a
+    row shard for ``RowShards``)."""
+    if isinstance(matrix, RowShards):
+        return RowShards(torch.arange(off, off + p.shape[0], device=p.device) < n
+                         for p, off in zip(matrix.parts, matrix.offsets))
+    return _prefix_mask(int(matrix.shape[0]), n, matrix.device)
+
+
+def _scatter_rows(matrix, rows: np.ndarray, vals: np.ndarray):
     """A copy of ``matrix`` with ``rows`` set to ``vals``.  Only the delta's
     rows cross from the host; the copy is made on the device so snapshots
     stay value-immutable (a matcher holding the old one keeps a consistent
-    (ids, matrix) pair).  The reference pads the row count to a power-of-two
-    bucket to bound its compiled scatter shapes; eager torch needs no bucket."""
+    (ids, matrix) pair).  For row shards, each row goes to its shard and
+    the shards no row touches are shared with the old snapshot.  The
+    reference pads the row count to a power-of-two bucket to bound its
+    compiled scatter shapes; eager torch needs no bucket."""
+    if isinstance(matrix, RowShards):
+        parts = []
+        for part, lo in zip(matrix.parts, matrix.offsets):
+            mine = (rows >= lo) & (rows < lo + part.shape[0])
+            parts.append(_scatter_rows(part, rows[mine] - lo, vals[mine]) if mine.any()
+                         else part)
+        return RowShards(parts)
     dev = matrix.device
     out = matrix.clone()
     out.index_copy_(0, torch.from_numpy(rows.astype(np.int64)).to(dev),
@@ -89,7 +118,7 @@ class _CompanySnapshot:
 
     @metrics.on_device
     def __init__(self, ids, metadata, matrix, embed_dim: int, block: int,
-                 dtype: str = "float32", device=None):
+                 dtype: str = "float32", device=None, mesh=None):
         if dtype not in _DTYPES and dtype != "int8":
             raise ValueError(f"gallery dtype {dtype!r}")
         _CompanySnapshot.full_builds += 1
@@ -98,21 +127,32 @@ class _CompanySnapshot:
         self.embed_dim = embed_dim
         self.block = block
         self.dtype = dtype
+        self.mesh = mesh
         n = len(self.ids)
         cap = _next_capacity(max(n, 1), block)
         padded = np.zeros((cap, embed_dim), np.float32)
         if n:
             padded[:n] = matrix
-        device = resolve_device(device)
         self.int8_scale = None
         if dtype == "int8":
             q, self.int8_scale = quantize_gallery(padded, headroom=1.25)
-            self.device_matrix = torch.from_numpy(q).to(device)
+            self.device_matrix = self._place(torch.from_numpy(q), device)
         else:
-            self.device_matrix = torch.from_numpy(padded).to(device, _DTYPES[dtype])
-        self.device_valid = _prefix_mask(cap, n, device)
+            self.device_matrix = self._place(torch.from_numpy(padded).to(_DTYPES[dtype]), device)
+        self.device_valid = _mask_like(self.device_matrix, n)
         self.size = n
         self.row_of = {pid: i for i, pid in enumerate(self.ids)}
+
+    def _place(self, host_matrix: torch.Tensor, device):
+        """Upload the gallery matrix: row shards over the mesh's gallery
+        axis when one is configured and divides the capacity (the rows
+        stay put; a match moves only each shard's candidates), else whole
+        on ``device``."""
+        if self.mesh is not None:
+            n_shards = self.mesh.shape.get(AXIS_GALLERY, 1)
+            if n_shards > 1 and host_matrix.shape[0] % n_shards == 0:
+                return gallery_sharding(self.mesh).put(host_matrix)
+        return host_matrix.to(resolve_device(device))
 
     @classmethod
     def _evolved(cls, src: "_CompanySnapshot", ids, row_of, metadata, device_matrix,
@@ -123,6 +163,7 @@ class _CompanySnapshot:
         snap.metadata = metadata
         snap.embed_dim = src.embed_dim
         snap.block = src.block
+        snap.mesh = src.mesh
         snap.dtype = src.dtype
         snap.int8_scale = src.int8_scale
         snap.device_matrix = device_matrix
@@ -201,19 +242,18 @@ class _CompanySnapshot:
             if self.dtype == "int8":
                 vals = np.clip(np.rint(vals / self.int8_scale), -127, 127).astype(np.int8)
             matrix = _scatter_rows(matrix, rows, vals)
-        valid = (self.device_valid if size == self.size
-                 else _prefix_mask(cap, size, matrix.device))
+        valid = self.device_valid if size == self.size else _mask_like(matrix, size)
         return _CompanySnapshot._evolved(self, ids, row_of, metadata, matrix, valid, size)
 
     @classmethod
     @metrics.on_device
-    def from_device_matrix(cls, device_matrix: torch.Tensor, size: int, dtype: str,
+    def from_device_matrix(cls, device_matrix, size: int, dtype: str,
                            int8_scale=None, ids=None, metadata=None, embed_dim: int = 512,
                            block: int = 1024) -> "_CompanySnapshot":
         """Wrap an already-on-device padded [capacity, embed_dim] matrix (first
-        ``size`` rows live) as a snapshot, without a host copy: galleries of
-        millions of rows are generated on the card in milliseconds.  Ids
-        default to ``str(row)``."""
+        ``size`` rows live; a tensor or ``RowShards``) as a snapshot, without
+        a host copy: galleries of millions of rows are generated on the card
+        in milliseconds.  Ids default to ``str(row)``."""
         snap = object.__new__(cls)
         n = int(size)
         snap.ids = list(ids) if ids is not None else [str(i) for i in range(n)]
@@ -221,10 +261,11 @@ class _CompanySnapshot:
         snap.metadata = metadata or {}
         snap.embed_dim = embed_dim
         snap.block = block
+        snap.mesh = None
         snap.dtype = dtype
         snap.int8_scale = int8_scale
         snap.device_matrix = device_matrix
-        snap.device_valid = _prefix_mask(int(device_matrix.shape[0]), n, device_matrix.device)
+        snap.device_valid = _mask_like(device_matrix, n)
         snap.size = n
         return snap
 
@@ -255,7 +296,18 @@ class _CompanySnapshot:
 
     def _device_match(self, q32: torch.Tensor, k: int = 1):
         """Device (vals [B, k], idx [B, k]): K2 (int8) or K1 for k == 1, else
-        cosine_topk on the float (dequantized) matrix."""
+        cosine_topk on the float (dequantized) matrix; on row shards the
+        same policy a shard (``parallel/topk.py``), with no dequantized
+        copy for int8."""
+        if isinstance(self.device_matrix, RowShards):
+            shards = self.device_matrix
+            if k == 1:
+                v1, i1 = distributed_top1_fused(q32, shards, self.size, int8_scale=(
+                    self.int8_scale if self.dtype == "int8" else None))
+                return v1[:, None], i1[:, None]
+            if self.dtype == "int8":
+                return distributed_topk_int8(q32, shards, self.int8_scale, self.size, k=k)
+            return distributed_topk(q32.to(shards.dtype), shards, self.device_valid, k=k)
         if k == 1:
             if self.dtype == "int8":
                 v1, i1 = gallery_top1_int8(q32, self.device_matrix, self.int8_scale,
@@ -276,11 +328,13 @@ class GalleryManager:
     def __init__(self, ds: Datastore, cfg: Config | None = None,
                  sync_interval_s: float | None = None, mesh=None,
                  initial_load: bool = True, device=None):
-        # the device first: off the card this raises before any load
+        # the device first: off the card this raises before any load.  With a
+        # mesh, the whole-matrix fallback (a capacity the gallery axis does
+        # not divide) lives on the mesh's first device unless one is given
+        if device is None and mesh is not None:
+            device = mesh.devices[0, 0]
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded gallery (mesh) is ROADMAP Queue 1 item 5 (multi-GPU)")
+        self.mesh = mesh
         cfg = cfg or get_config()
         self.ds = ds
         self.cfg = cfg
@@ -527,7 +581,8 @@ class GalleryManager:
         matrix = matrix / np.maximum(np.linalg.norm(matrix, axis=1, keepdims=True), 1e-12)
         snap = _CompanySnapshot(ids, metadata, matrix, self.cfg.engine.embed_dim,
                                 self.cfg.engine.gallery_block,
-                                dtype=self.cfg.engine.gallery_dtype, device=self.device)
+                                dtype=self.cfg.engine.gallery_dtype, device=self.device,
+                                mesh=self.mesh)
         with self._lock:
             self._snapshots[company_id or "__all__"] = snap
         return snap
@@ -557,7 +612,8 @@ class GalleryManager:
                   else np.zeros((0, self.cfg.engine.embed_dim), np.float32))
         snap = _CompanySnapshot(ids, meta, matrix, self.cfg.engine.embed_dim,
                                 self.cfg.engine.gallery_block,
-                                dtype=self.cfg.engine.gallery_dtype, device=self.device)
+                                dtype=self.cfg.engine.gallery_dtype, device=self.device,
+                                mesh=self.mesh)
         with self._lock:
             if self._version == version:
                 self._snapshots[key] = snap

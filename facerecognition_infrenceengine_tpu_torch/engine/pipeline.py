@@ -29,6 +29,11 @@ IResNet embedder with int8 PTQ weights and calibrated activation scales
 at build, with the neck and head float.  As in the reference, the packed
 "xla" / "pallas" programs keep the float backbone under ``det_int8``.
 
+``make_sharded_fused(mesh, variant)`` splits a frame batch over a mesh's
+``data`` axis: one copy of the engine on the first device of each data
+row, each shard's program on its device, the outputs left on their shards
+(``parallel/sharding.RowShards``).
+
 ``attributes`` runs buffalo_l's genderage and 2d106det heads on K3 crops:
 the exact ONNX graphs when converted ones sit in the weights dir
 (``models/onnx_exec.py``), else the synthetic heads.
@@ -42,6 +47,7 @@ switches TF32 off for cuDNN and cuBLAS.
 
 from __future__ import annotations
 
+import copy
 import os
 from dataclasses import dataclass
 
@@ -68,6 +74,7 @@ from ..ops.stem_kernel import space_to_depth4
 from ..ops.warp2pass import boxes_to_affines, build_atlas, warp_boxes_two_pass
 from ..ops.warp2pass import warp_faces_two_pass, warp_faces_two_pass_packed
 from ..ops.yuv import yuv420p4_to_rgbp4
+from ..parallel.sharding import RowShards, batch_sharding, replicated
 
 # YUV black (Y = 0, U = V = 128) for canvas rows a yuv420 pack does not
 # carry: zero chroma would decode green
@@ -583,3 +590,75 @@ class FaceEngine:
         """Serving variant of ``detect_align_embed_yuv420``: one [B, F, 528]
         device tensor."""
         return self._fused_yuv_flat_impl(self._to_device(frames_y24_u8), det_threshold)
+
+    @metrics.on_device
+    def _on(self, device) -> "FaceEngine":
+        """A copy of the engine whose modules and tensors live on ``device``
+        (the configuration shared; the attribute heads load there at their
+        first use).  A tensor two attributes share is copied once."""
+        moved: dict = {}
+
+        def move(v):
+            if id(v) in moved:
+                return moved[id(v)]
+            if isinstance(v, torch.Tensor):
+                out = v.to(device)
+            elif isinstance(v, torch.nn.Module):
+                out = copy.deepcopy(v).to(device)
+            elif isinstance(v, dict):
+                out = {k: move(x) for k, x in v.items()}
+            elif isinstance(v, (list, tuple)):
+                out = type(v)(move(x) for x in v)
+            else:
+                out = v
+            moved[id(v)] = out
+            return out
+
+        twin = copy.copy(self)
+        for name, value in vars(self).items():
+            setattr(twin, name, move(value))
+        twin.device = device
+        twin._attr_models = twin._attr_runners = None
+        return twin
+
+    @metrics.on_device
+    def make_sharded_fused(self, mesh, variant: str = "raw"):
+        """Data-parallel fused program over a mesh's ``data`` axis.
+
+        The engine is copied once to the first device of each data row (no
+        copy where that is the engine's own device); the frame batch splits
+        over ``data`` and each shard runs the single-device program on its
+        device.  Detection is independent a frame, so no shard waits for
+        another; devices along ``gallery`` would compute the same thing and
+        run nothing here (the gallery axis is the match's,
+        ``parallel/topk.py``).
+
+        ``variant`` selects the serving contract:
+          "raw"      -- fn(frames_u8 [B, H, W, 3]) -> 5 outputs
+          "flat"     -- fn(frames_u8 [B, H, W, 3]) -> one [B, F, 528]
+          "yuv_flat" -- fn(frames_y24 [B, rows<=H/4, W/4, 24]) -> [B, F, 528]
+        Each output is a ``RowShards`` whose ``parts[i]`` is data shard i's
+        rows on its device: nothing is gathered to one device.  B must be
+        divisible by the data-axis size.
+        """
+        impl = {"raw": "_fused_impl", "flat": "_fused_flat_impl",
+                "yuv_flat": "_fused_yuv_flat_impl"}[variant]
+        copies = {d: self if d == self.device else self._on(d)
+                  for d in replicated(mesh).devices}
+        engines = [copies[d] for d in batch_sharding(mesh).devices]
+
+        @metrics.on_device
+        @torch.inference_mode()
+        def run(frames, det_threshold: float = 0.3):
+            b, n = int(frames.shape[0]), len(engines)
+            if b % n:
+                raise ValueError(f"batch of {b} frames does not split over {n} data shards")
+            step = b // n
+            outs = [getattr(eng, impl)(eng._to_device(frames[i * step:(i + 1) * step]),
+                                       det_threshold)
+                    for i, eng in enumerate(engines)]
+            if variant != "raw":
+                return RowShards(outs)
+            return tuple(RowShards(parts) for parts in zip(*outs))
+
+        return run

@@ -13,11 +13,14 @@ so concurrent builders never load a partial file).  A build failure raises
 with the compiler's output: nothing falls back to the plain versions.
 
 Every CUDA C entry returns ``cudaGetLastError()`` after its launches;
-``check`` raises on anything but 0.
+``check`` raises on anything but 0.  A C entry launches on the calling
+thread's current device, so each wrapper launches inside
+``launch_device(tensor.device)``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -157,6 +160,20 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = loaded
     return _lib
+
+
+def launch_device(device):
+    """Make ``device`` the calling thread's current CUDA device for a
+    launch: a C entry's ``<<<>>>`` launch goes to the current device,
+    whichever card the stream and pointers it is given belong to, so a
+    thread driving shards on several cards would otherwise launch each on
+    the wrong one.  No switch when ``device`` is already current (one card:
+    always)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def cxx() -> str:

@@ -10,7 +10,11 @@ identical weights without either one running the other.
 The flax leaf paths come from the torch modules themselves: every
 submodule is named after its flax counterpart (``Conv_0``, ``BatchNorm_0``,
 ``layer1_b0``, ...), so a state-dict key maps to a flax path by swapping
-``.`` for ``/`` and renaming the parameter by layer type.
+``.`` for ``/`` and renaming the parameter by layer type.  ``to_flax`` is
+the inverse of ``from_flax``; ``train_state_from_flax`` /
+``train_state_to_flax`` carry a training state (params, BatchNorm
+statistics, SGD momentum) between the reference's trees and
+``engine/training.py``'s layout.
 """
 
 from __future__ import annotations
@@ -79,6 +83,10 @@ def _dense_to_torch(k: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(k.T)
 
 
+_conv_to_torch.inverse = lambda w: np.ascontiguousarray(np.transpose(w, (2, 3, 1, 0)))
+_dense_to_torch.inverse = _dense_to_torch
+
+
 def _flat_dense_to_torch(chw):
     """Dense after a flatten: flax flattens NHWC (spatial-major), torch
     NCHW (channel-major), so the kernel rows H*W*C are permuted to C*H*W
@@ -90,11 +98,20 @@ def _flat_dense_to_torch(chw):
         k = k.reshape(h, w, c, n_out).transpose(3, 2, 0, 1)
         return np.ascontiguousarray(k.reshape(n_out, c * h * w))
 
+    def inverse(t: np.ndarray) -> np.ndarray:
+        n_out = t.shape[0]
+        t = t.reshape(n_out, c, h, w).transpose(2, 3, 1, 0)
+        return np.ascontiguousarray(t.reshape(h * w * c, n_out))
+
+    convert.inverse = inverse
     return convert
 
 
 def _identity(a: np.ndarray) -> np.ndarray:
     return a
+
+
+_identity.inverse = _identity
 
 
 def flax_layout(model: nn.Module) -> list:
@@ -159,6 +176,83 @@ def from_flax(flat: dict, model: nn.Module) -> dict:
             raise ValueError(f"{path}: shape {leaf.shape}, expected {shape}")
         state[key] = torch.from_numpy(np.array(convert(leaf)))
     return state
+
+
+def to_flax(state: dict, model: nn.Module) -> dict:
+    """Torch tensors {state-dict key: tensor} of ``model`` -> {flax path:
+    numpy float32 array}, the inverse of ``from_flax``: OIHW -> HWIO, the
+    flattened Dense's rows NCHW -> NHWC (``flatten_chw``).  Converts the
+    keys given (a parameter-only dict, such as a momentum tree, gives the
+    ``params`` leaves only); a key the layout lacks raises."""
+    layout = {key: (path, convert) for key, path, _, convert in flax_layout(model)}
+    unknown = set(state) - set(layout)
+    if unknown:
+        raise KeyError(f"not in the flax layout of the module: {sorted(unknown)}")
+    return {layout[key][0]: layout[key][1].inverse(
+                t.detach().cpu().numpy().astype(np.float32, copy=False))
+            for key, t in state.items()}
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """{``/``-joined path: array} -> nested dicts (``flatten_tree``'s inverse)."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, name = path.split(SEP)
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
+
+
+def _torch_leaves(flat: dict, model: nn.Module, keys) -> dict:
+    out = {}
+    for key, path, shape, convert in flax_layout(model):
+        if key in keys:
+            leaf = np.asarray(flat[path], np.float32)
+            if tuple(leaf.shape) != tuple(shape):
+                raise ValueError(f"{path}: shape {leaf.shape}, expected {shape}")
+            out[key] = torch.from_numpy(np.array(convert(leaf)))
+    return out
+
+
+def train_state_from_flax(params: dict, batch_stats: dict, momentum: dict,
+                          model: nn.Module) -> dict:
+    """The reference's training state -> ``engine/training.py``'s.
+
+    params: {"model": flax params tree, "w": [C, 512]}; batch_stats: the
+    flax batch-stats tree; momentum: the SGD trace (``optax.sgd``'s
+    ``TraceState.trace``), shaped as params.  The momentum of a converted
+    leaf is converted as the leaf is (the flattened Dense's rows permuted,
+    conv kernels transposed)."""
+    pkeys = {k for k, _ in model.named_parameters()}
+    skeys = {k for k, _ in model.named_buffers() if k.endswith(("running_mean", "running_var"))}
+    flat = flatten_tree({"params": params["model"], "batch_stats": batch_stats})
+    mflat = flatten_tree({"params": momentum["model"]})
+    return {
+        "params": {"model": _torch_leaves(flat, model, pkeys),
+                   "w": torch.from_numpy(np.array(params["w"], np.float32))},
+        "batch_stats": _torch_leaves(flat, model, skeys),
+        "opt_state": {"model": _torch_leaves(mflat, model, pkeys),
+                      "w": torch.from_numpy(np.array(momentum["w"], np.float32))},
+    }
+
+
+def train_state_to_flax(state: dict, model: nn.Module) -> tuple:
+    """``engine/training.py``'s state -> the reference's (params,
+    batch_stats, momentum) nested trees of numpy arrays (row-sharded W and
+    momentum gathered whole)."""
+    def whole(t):
+        from ..parallel.sharding import RowShards
+
+        t = t.gather("cpu") if isinstance(t, RowShards) else t
+        return t.detach().cpu().numpy()
+
+    p = unflatten_tree(to_flax(state["params"]["model"], model))["params"]
+    stats = unflatten_tree(to_flax(state["batch_stats"], model))["batch_stats"]
+    m = unflatten_tree(to_flax(state["opt_state"]["model"], model))["params"]
+    return ({"model": p, "w": whole(state["params"]["w"])}, stats,
+            {"model": m, "w": whole(state["opt_state"]["w"])})
 
 
 def load_tree(model: nn.Module, flat: dict) -> nn.Module:

@@ -98,8 +98,10 @@ def gallery_top1(queries: torch.Tensor, gallery: torch.Tensor, n_valid: int):
         ("top1", dev, stream, b),
         lambda: (torch.zeros(b, dtype=torch.int64, device=dev),
                  torch.zeros(-(-b // 32), dtype=torch.int32, device=dev)))
-    err = fn(q.data_ptr(), gallery.data_ptr(), int(gallery.dtype == torch.bfloat16), b, n_rows,
-             keys.data_ptr(), done.data_ptr(), vals.data_ptr(), idx.data_ptr(), stream)
+    with build.launch_device(dev):
+        err = fn(q.data_ptr(), gallery.data_ptr(), int(gallery.dtype == torch.bfloat16), b,
+                 n_rows, keys.data_ptr(), done.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                 stream)
     build.check(err, "fre_gallery_top1")
     gallery_top1.launches += 1
     return vals, idx
@@ -211,9 +213,10 @@ def gallery_top1_int8(queries: torch.Tensor, gallery_q: torch.Tensor, gallery_sc
         lambda: (torch.zeros(2, dtype=torch.int32, device=dev),
                  torch.zeros(b, dtype=torch.int64, device=dev),
                  torch.empty((b, DIM), dtype=torch.int8, device=dev)))
-    err = fn(q.data_ptr(), gallery_q.data_ptr(), float(gallery_scale), b, n_rows,
-             state.data_ptr(), q_int.data_ptr(), keys.data_ptr(), vals.data_ptr(),
-             idx.data_ptr(), stream)
+    with build.launch_device(dev):
+        err = fn(q.data_ptr(), gallery_q.data_ptr(), float(gallery_scale), b, n_rows,
+                 state.data_ptr(), q_int.data_ptr(), keys.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), stream)
     build.check(err, "fre_gallery_top1_int8")
     gallery_top1_int8.launches += 1
     return vals, idx

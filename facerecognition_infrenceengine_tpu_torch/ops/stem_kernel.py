@@ -242,16 +242,18 @@ def fused_stem_s2d4(x48: torch.Tensor, weights: dict, stem_width: int) -> torch.
                     or not t.is_contiguous() or t.data_ptr() % 16):
                 raise ValueError(f"stem fragments {key}: {tuple(t.shape)} {t.dtype}, want "
                                  f"{shape} bf16 contiguous on {x48.device}")
-        err = build.lib().fre_fused_stem_bf16(
-            x48.data_ptr(), frags["f1"].data_ptr(), weights["b1"].data_ptr(),
-            frags["f2"].data_ptr(), weights["b2"].data_ptr(), frags["f3"].data_ptr(),
-            weights["b3"].data_ptr(), out.data_ptr(), b, h4, w4, sw, stream)
+        with build.launch_device(x48.device):
+            err = build.lib().fre_fused_stem_bf16(
+                x48.data_ptr(), frags["f1"].data_ptr(), weights["b1"].data_ptr(),
+                frags["f2"].data_ptr(), weights["b2"].data_ptr(), frags["f3"].data_ptr(),
+                weights["b3"].data_ptr(), out.data_ptr(), b, h4, w4, sw, stream)
         build.check(err, "fre_fused_stem_bf16")
     else:
-        err = build.lib().fre_fused_stem(
-            x48.data_ptr(), weights["w1"].data_ptr(), weights["b1"].data_ptr(),
-            weights["w2"].data_ptr(), weights["b2"].data_ptr(), weights["w3"].data_ptr(),
-            weights["b3"].data_ptr(), out.data_ptr(), b, h4, w4, sw, stream)
+        with build.launch_device(x48.device):
+            err = build.lib().fre_fused_stem(
+                x48.data_ptr(), weights["w1"].data_ptr(), weights["b1"].data_ptr(),
+                weights["w2"].data_ptr(), weights["b2"].data_ptr(), weights["w3"].data_ptr(),
+                weights["b3"].data_ptr(), out.data_ptr(), b, h4, w4, sw, stream)
         build.check(err, "fre_fused_stem")
     fused_stem.launches += 1
     return out

@@ -104,10 +104,11 @@ def _launch(atlas, windows, mats, out_size, packed, side, variant) -> torch.Tens
     if m == 0:
         return out
     stream = torch.cuda.current_stream(atlas.device).cuda_stream
-    err = build.lib().fre_warp_windows(
-        atlas.data_ptr(), None if windows is None else windows.data_ptr(), mats.data_ptr(),
-        out.data_ptr(), m, b, ha, wa, c, side, out_size, int(atlas.dtype == torch.uint8),
-        int(packed), VARIANTS.index(variant), stream)
+    with build.launch_device(atlas.device):
+        err = build.lib().fre_warp_windows(
+            atlas.data_ptr(), None if windows is None else windows.data_ptr(),
+            mats.data_ptr(), out.data_ptr(), m, b, ha, wa, c, side, out_size,
+            int(atlas.dtype == torch.uint8), int(packed), VARIANTS.index(variant), stream)
     build.check(err, "fre_warp_windows")
     warp_rois.launches += 1
     warp_rois.launches_by_size[out_size] += 1

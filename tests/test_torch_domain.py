@@ -7,8 +7,10 @@ Run here against ``facerecognition_infrenceengine_tpu_torch``
 they stay as they are):
 - every case of tests/test_campus_counting.py and tests/test_qr.py;
 - the cases of tests/test_enrollment_gallery.py that need neither JAX nor a
-  device mesh (the sharded cases wait for ROADMAP Queue 1 item 5; the f32
-  score-cache case pins a TPU-only bf16 copy the port does not keep);
+  device mesh (the sharded cases build their mesh from ``jax.devices()``:
+  tests/test_torch_parallel.py holds hand-written equivalents on a mesh of
+  CPU devices; the f32 score-cache case pins a TPU-only bf16 copy the port
+  does not keep);
 - the cases of tests/test_servers.py that tests/test_torch_serving.py does
   not run, except ``test_recalibrate_int8_route``, which waits for the int8
   embedder (ROADMAP Queue 1 item 4).

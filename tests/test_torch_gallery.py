@@ -353,13 +353,19 @@ def test_sync_thread_runs_a_tick_and_stops():
 
 def test_constructor_contract():
     """The device resolves first (off the card it raises before any load); a
-    mesh raises, naming the multi-GPU item; initial_load=False loads nothing;
-    from_device_matrix wraps a padded matrix as a snapshot."""
+    mesh builds a manager that matches over row shards; initial_load=False
+    loads nothing; from_device_matrix wraps a padded matrix as a snapshot."""
     import torch
 
+    from facerecognition_infrenceengine_tpu_torch.parallel import build_mesh
+
     ds = Datastore(Config())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        gallery.GalleryManager(ds, Config(), mesh=object(), device="cpu")
+    sharded = gallery.GalleryManager(ds, Config(), mesh=build_mesh(["cpu"] * 2, data=1,
+                                                                   gallery=2), device="cpu")
+    sharded.set_snapshot(["a", "b"], {"a": {}, "b": {}}, np.eye(2, 512, dtype=np.float32))
+    assert len(sharded.snapshot().device_matrix) == 2
+    scores, ids, _ = sharded.match(np.eye(2, 512, dtype=np.float32)[[1, 0]])
+    assert [r[0] for r in ids] == ["b", "a"] and np.allclose(scores[:, 0], 1.0)
     empty = gallery.GalleryManager(ds, Config(), initial_load=False, device="cpu")
     assert empty.last_sync_time is None and empty.is_empty()
     assert empty.get_stats()["initial_load_complete"] is False

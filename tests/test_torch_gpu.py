@@ -743,3 +743,130 @@ def test_int8_embedder_on_the_card_is_close_to_bf16(cuda):
     cos = (embs[0] * embs[1]).sum(1)
     assert cos.min() >= 0.98, cos
     assert not np.allclose(embs[0], embs[1], atol=1e-6)
+
+
+# ---------------------------------------------- the mesh and the trainer
+def _clear_ids(q, g, nv, dtype):
+    """Rows whose plain top-2 gap exceeds the kernels' f32 summation-order
+    difference (1e-5): there the ids must agree."""
+    cols = torch.arange(g.shape[0])
+    s = torch.where(cols < nv, q.to(dtype).float() @ g.float().T, torch.tensor(float("-inf")))
+    top2 = s.topk(2, dim=1).values
+    return (top2[:, 0] - top2[:, 1]) > 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_sharded_match_on_a_repeated_card_equals_plain(cuda, dtype):
+    """K1 (f32, bf16) or K2 (int8) once a shard on ``cuda:0`` named four
+    times, merged with the lowest global index, against the same merge with
+    every shard on the CPU through the plain versions: values within 1e-5
+    (K1's FFMA / tensor-core order) or equal (K2), ids equal wherever the
+    top-2 gap is clear; the live prefix ends inside shard 3; k = 3 through
+    ``distributed_topk`` / ``distributed_topk_int8`` likewise."""
+    from facerecognition_infrenceengine_tpu_torch.parallel import build_mesh, gallery_sharding
+    from facerecognition_infrenceengine_tpu_torch.parallel import topk
+
+    rng = np.random.default_rng(8)
+    n, nv = 16384, 13000
+    g = _unit(rng, n)
+    q = torch.from_numpy(_unit(rng, 37))
+    q[0] = torch.from_numpy(g[12999])  # a self-match at the last live row
+    mesh = build_mesh([cuda] * 4, data=1, gallery=4)
+    scale = None
+    if dtype == "int8":
+        gq, scale = match_kernel.quantize_gallery(g, headroom=1.25)
+        host = torch.from_numpy(gq)
+    else:
+        host = torch.from_numpy(g).to(getattr(torch, dtype))
+    shards = gallery_sharding(mesh).put(host)
+    kernel = match_kernel.gallery_top1_int8 if scale is not None else match_kernel.gallery_top1
+    before = kernel.launches
+    v, i = topk.distributed_top1_fused(q.to(cuda), shards, nv, int8_scale=scale)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 4
+    pv, pi = topk.distributed_top1_fused_plain(q, shards, nv, scale)
+    assert int(i[0]) == 12999 and v.device.type == "cuda"
+    if scale is not None:
+        assert torch.equal(v.cpu(), pv) and torch.equal(i.cpu(), pi)
+    else:
+        assert (v.cpu() - pv).abs().max().item() <= 1e-5
+        clear = _clear_ids(q, host, nv, host.dtype)
+        assert torch.equal(i.cpu()[clear], pi[clear])
+    if scale is not None:
+        kv, ki = topk.distributed_topk_int8(q.to(cuda), shards, scale, nv, k=3)
+        pkv, pki = topk.distributed_topk_int8_plain(q, shards, scale, nv, k=3)
+        assert torch.equal(kv.cpu(), pkv) and torch.equal(ki.cpu(), pki)
+    else:
+        valid = gallery_sharding(mesh).put(torch.arange(n) < nv)
+        kv, ki = topk.distributed_topk(q.to(cuda), shards, valid, k=3)
+        pkv, pki = topk.distributed_topk_plain(q, shards, valid, k=3)
+        assert (kv.cpu() - pkv).abs().max().item() <= 1e-5
+
+
+def test_kernels_launch_on_their_tensors_card(cuda):
+    """From a thread whose current device is card 0, K1, K2, K3 and K4 on
+    card 1's tensors launch on card 1 (``kernels/build.launch_device``) and
+    equal their plain versions; the thread's current device is left as it
+    was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: the launch-device check crosses cards")
+    from facerecognition_infrenceengine_tpu_torch.ops import stem_kernel
+
+    torch.cuda.set_device(0)
+    one = torch.device("cuda", 1)
+    rng = np.random.default_rng(9)
+    g = torch.from_numpy(_unit(rng, 4096))
+    q = torch.from_numpy(_unit(rng, 8))
+    v, i = match_kernel.gallery_top1(q.to(one), g.to(one), 4000)
+    pv, pi = match_kernel.gallery_top1_plain(q, g, 4000)
+    gq, gs = match_kernel.quantize_gallery(g.numpy())
+    v8, i8 = match_kernel.gallery_top1_int8(q.to(one), torch.from_numpy(gq).to(one), gs, 4000)
+    pv8, pi8 = match_kernel.gallery_top1_int8_plain(q, torch.from_numpy(gq), gs, 4000)
+    frames = torch.from_numpy(rng.integers(0, 256, (2, 256, 320, 3), dtype=np.uint8))
+    kps = torch.from_numpy((ARCFACE_DST + np.float32([100, 80]))[None].repeat(2, 0)
+                           .astype(np.float32))
+    rois, mats = warp2pass.extract_rois(frames.to(one), torch.tensor([0, 1], device=one),
+                                        kps.to(one))
+    crops = warp_kernel.warp_rois(rois, mats)
+    w = _stem_weights(8, torch.float32, one)
+    x48 = torch.from_numpy(rng.integers(0, 256, (1, 16, 16, 48), dtype=np.uint8))
+    stem = stem_kernel.fused_stem_s2d4(x48.to(one), w, 8)
+    torch.cuda.synchronize(1)
+    assert torch.cuda.current_device() == 0
+    assert (v.cpu() - pv).abs().max().item() <= 1e-5 and torch.equal(i8.cpu(), pi8)
+    assert torch.equal(v8.cpu(), pv8)
+    assert (crops.cpu() - warp_kernel.warp_rois_plain(rois.cpu(), mats.cpu())).abs().max() <= 1e-3
+    want = stem_kernel.fused_stem_plain(x48, {k: t.cpu() for k, t in w.items()}, 8)
+    assert (stem.cpu() - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One IResNet-18 step (112x112, B = 8, 1,000 classes, f32, TF32 off)
+    on the card against the same step on the CPU, from one state: the loss
+    within 1e-4 relative, the step's update of the model and of W within
+    1e-3 relative (L2 over all leaves: cuDNN's and the CPU's summation
+    orders; a BatchNorm bias's gradient is a sum whose terms cancel, so a
+    leaf's own largest error says little)."""
+    from facerecognition_infrenceengine_tpu_torch.core.device import resolve_device
+    from facerecognition_infrenceengine_tpu_torch.engine import training
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+
+    resolve_device(cuda)  # TF32 off, as every f32 program of the port
+    torch.manual_seed(0)
+    model = arcface.iresnet18()
+    rng = np.random.default_rng(10)
+    images = rng.normal(size=(8, 112, 112, 3)).astype(np.float32)
+    labels = rng.integers(0, 1000, 8)
+    out = {}
+    for dev in ("cpu", cuda):
+        m = model.to(dev)
+        state, opt = training.make_train_state(m, 1000, images[:2], learning_rate=0.01)
+        new, loss = training.make_train_step(m, opt)(state, images, labels)
+        out[str(dev)] = (float(loss), torch.cat(
+            [(new["params"]["model"][k] - t).cpu().double().flatten()
+             for k, t in state["params"]["model"].items()]),
+            (new["params"]["w"] - state["params"]["w"]).cpu().double())
+    (l_cpu, u_cpu, w_cpu), (l_gpu, u_gpu, w_gpu) = out.values()
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert (u_gpu - u_cpu).norm() <= 1e-3 * u_cpu.norm()
+    assert (w_gpu - w_cpu).norm() <= 1e-3 * w_cpu.norm()
