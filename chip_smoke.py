@@ -2759,6 +2759,11 @@ TRAIN_PROTOTYPES = 48           # the synthetic crops' identities
 TRAIN_LR = 1e-3                 # SGD lr (momentum 0.9): an IResNet-18 rehearsal on the CPU
                                 # (B = 16, 1,000 classes) fell at 1e-3 and 1e-2, rose at 0.1
 RESUME_STEPS = 4                # the resume check: 2 steps, a checkpoint, 2 more
+TRAIN_BF16_GRADIENT = 0.25      # the bf16 step's gradient against the f32 step's, and the bf16
+                                # mesh step's against the unsharded bf16 step's (relative L2):
+                                # the bf16 step on the batch permuted moves it by ~10% on the
+                                # H100 (PERF.md §6); per-shard BatchNorm statistics, far more
+TRAIN_BF16_COS = 1e-3           # BASELINE.md's embedding budget: bf16 against f32 train forward
 
 
 def mesh_of(torch):
@@ -3010,6 +3015,148 @@ def _state_equal(torch, a: dict, b: dict) -> bool:
     return torch.equal(a, b)
 
 
+def _gradient_rel(torch, got: dict, want: dict) -> dict:
+    """The gradients (the momenta after one step from zero) of two training
+    states apart, relative L2: W's and the model's separately."""
+    from facerecognition_infrenceengine_tpu_torch.parallel.sharding import RowShards
+
+    def whole(t):
+        return (t.gather() if isinstance(t, RowShards) else t).double()
+
+    def rel(pairs):
+        num = sum(float(((g.to(w.device) - w) ** 2).sum()) for g, w in pairs)
+        return (num / sum(float((w ** 2).sum()) for _, w in pairs)) ** 0.5
+
+    g, w = got["opt_state"], want["opt_state"]
+    return {"w": rel([(whole(g["w"]), whole(w["w"]))]),
+            "model": rel([(whole(g["model"][k]), whole(w["model"][k])) for k in w["model"]])}
+
+
+def train_bf16(torch, card: str, model32, state: dict, new: dict, loss, images, labels,
+               batches: list, net_flops: float, cls_flops: float) -> dict:
+    """[train] bf16: ``iresnet50(dtype=torch.bfloat16)`` with the same
+    seeded weights as float32 master weights, the same classes, state,
+    batches and lr.  From one state and one batch: the bf16 step against
+    the f32 step ``new`` (``loss``): the loss relative, the train-mode
+    embeddings' max 1 - cos, the gradient (the momentum after the step;
+    W's and the model's) relative L2; beside it the bf16 step's own spread,
+    the same bf16 step on the batch permuted; the data 2 x gallery 2 mesh
+    bf16 step against the unsharded bf16 step.  Then fit over the 20
+    batches (step ms, images/s, peak memory, share of the bound: the convs
+    and the Dense at the dense bf16 peak, the f32 ArcFace logits at the
+    f32 peak).  Holds: the loss within 1e-3 of f32 and falling over the
+    fit, the embeddings within the 1e-3 cosine budget, params and momentum
+    float32, and the gradient of the bf16 step (against f32) and of the
+    mesh step (against the unsharded bf16 step) within
+    ``TRAIN_BF16_GRADIENT``: through IResNet-50's 24 blocks a bf16 step's
+    gradient moves by ~10% when only the batch's order changes (the
+    reference's bf16 step alike, on the CPU: ``PYTHONPATH=. python
+    tests/test_torch_training_bf16.py --r50``), so that spread is printed
+    beside them."""
+    from facerecognition_infrenceengine_tpu_torch.engine import training
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+    from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
+    from facerecognition_infrenceengine_tpu_torch.parallel import build_mesh
+
+    t_phase = time.perf_counter()
+    dev = images.device
+    out = {}
+    model = load_or_init("arcface_r50", arcface.iresnet50(dtype=torch.bfloat16), 1).to(dev)
+    bstate, opt = training.make_train_state(model, TRAIN_CLASSES, images[:2], seed=0,
+                                            learning_rate=TRAIN_LR)
+    check(_state_equal(torch, bstate, state), "[train] bf16: the state differs from the f32 "
+          "model's (the same seeded weights, W and zero momentum)")
+    step = training.make_train_step(model, opt)
+    bnew, bloss = step(bstate, images, labels)
+    perm = torch.randperm(TRAIN_BATCH, generator=torch.Generator(device=dev).manual_seed(17),
+                          device=dev)
+    pnew, _ = step(bstate, images[perm], labels[perm])
+    mstep = training.make_train_step(model, opt, mesh=build_mesh([dev] * 4, data=2, gallery=2))
+    mnew, mloss = mstep(bstate, images, labels)
+    with torch.no_grad():
+        e_bf = training._embed(model, bstate, images)[0]
+        e_32 = training._embed(model32, state, images)[0]
+        emb_cos = float((1.0 - torch.nn.functional.cosine_similarity(e_bf, e_32)).max())
+    errs = _state_errors(torch, bnew, new, start=state)
+    lerr = abs(float(bloss) - float(loss)) / abs(float(loss))
+    grads = {"vs_f32": _gradient_rel(torch, bnew, new),
+             "batch_permuted": _gradient_rel(torch, pnew, bnew),
+             "mesh": _gradient_rel(torch, mnew, bnew)}
+    merrs = _state_errors(torch, mnew, bnew, start=bstate)
+    spread = _state_errors(torch, pnew, bnew, start=bstate)
+    mlerr = abs(float(mloss) - float(bloss)) / abs(float(bloss))
+    torch.cuda.synchronize()
+    out["vs_f32"] = {"loss_rel": lerr, "embedding_max_1_minus_cos": emb_cos,
+                     "gradient_rel": errs["opt_state"], "update_rel": errs["params"],
+                     "batch_stats_rel": errs["batch_stats"]}
+    out["batch_permuted_vs_bf16"] = {"gradient_rel": spread["opt_state"],
+                                     "batch_stats_rel": spread["batch_stats"]}
+    out["mesh_vs_unsharded"] = {"loss_rel": mlerr, "gradient_rel": merrs["opt_state"],
+                                "update_rel": merrs["params"],
+                                "batch_stats_rel": merrs["batch_stats"]}
+    out["gradient_parts"] = grads
+    say(f"[train] {card} | bf16 (f32 master weights): one step, loss {float(bloss):.4f}; "
+        f"against the f32 step from the same state and batch: loss {lerr:.2e} apart, the "
+        f"train-mode embeddings max 1-cos {emb_cos:.2e}, gradient {errs['opt_state']:.2e} "
+        f"(W {grads['vs_f32']['w']:.2e}, model {grads['vs_f32']['model']:.2e}), batch_stats "
+        f"{errs['batch_stats']:.2e} (relative L2); the same bf16 step on the batch permuted "
+        f"against it: gradient {spread['opt_state']:.2e} (W {grads['batch_permuted']['w']:.2e}, "
+        f"model {grads['batch_permuted']['model']:.2e}); the data 2 x gallery 2 mesh bf16 step "
+        f"against the unsharded bf16 step: loss {mlerr:.2e}, gradient {merrs['opt_state']:.2e} "
+        f"(W {grads['mesh']['w']:.2e}, model {grads['mesh']['model']:.2e}), batch_stats "
+        f"{merrs['batch_stats']:.2e}")
+    del bnew, mnew, pnew
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+
+    def timed(s, x, y):
+        t = time.perf_counter()
+        s2, l2 = step(s, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        return s2, l2
+
+    fitted, losses = training.fit(timed, bstate, batches, log_every=0)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steady = sorted(times[2:])
+    step_ms = steady[len(steady) // 2]
+    net_ms = net_flops / PEAK_FLOPS["bfloat16"] * 1e3
+    cls_ms = cls_flops / PEAK_FLOPS["float32"] * 1e3
+    bound_ms = net_ms + cls_ms
+    leaves = [t for part in ("params", "opt_state")
+              for t in list(fitted[part]["model"].values()) + [fitted[part]["w"]]]
+    dtypes = sorted({str(t.dtype) for t in leaves})
+    out.update(step_ms=step_ms, step_ms_all=list(times), images_per_s=TRAIN_BATCH / step_ms * 1e3,
+               peak_memory_mb=peak, losses=losses, flops_per_step=net_flops + cls_flops,
+               bound_ms=bound_ms, bound_by="operations", peak_flops_bf16=PEAK_FLOPS["bfloat16"],
+               peak_flops_f32=PEAK_FLOPS["float32"], state_dtypes=dtypes)
+    say(f"[train] {card} | bf16 fit {TRAIN_STEPS} steps: loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f} (first five {np.mean(losses[:5]):.3f}, last five "
+        f"{np.mean(losses[-5:]):.3f}); step {step_ms:.2f} ms (p50 of steps 3-{TRAIN_STEPS}; "
+        f"first {times[0]:.1f} ms), {TRAIN_BATCH / step_ms * 1e3:.1f} images/s, peak memory "
+        f"{peak:.0f} MiB; {(net_flops + cls_flops) / 1e12:.3f} TFLOP a step: "
+        f"{net_flops / 1e12:.3f} in the convs and the Dense at the dense bf16 peak "
+        f"({PEAK_FLOPS['bfloat16'] / 1e12:.0f} TFLOP/s, {net_ms:.2f} ms) and "
+        f"{cls_flops / 1e12:.4f} in the f32 logits at the f32 peak "
+        f"({PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s, {cls_ms:.2f} ms): bound {bound_ms:.2f} ms "
+        f"({100 * bound_ms / step_ms:.0f}%); params and momentum {dtypes}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[train] bf16 part {out['phase_s']:.1f} s")
+    bound = TRAIN_BF16_GRADIENT
+    check(np.isfinite(float(bloss)) and lerr <= 1e-3 and emb_cos <= TRAIN_BF16_COS,
+          f"[train] bf16: the loss or the embeddings against the f32 step: {out['vs_f32']}")
+    check(errs["opt_state"] <= bound,
+          f"[train] bf16: the gradient against the f32 step beyond {bound:.3e}: {out['vs_f32']}")
+    check(merrs["opt_state"] <= bound and mlerr <= 1e-3,
+          f"[train] bf16: the mesh step beyond {bound:.3e}: {out['mesh_vs_unsharded']}")
+    check(all(np.isfinite(losses)) and np.mean(losses[-5:]) < np.mean(losses[:5]),
+          f"[train] bf16: the loss did not fall: {losses}")
+    check(dtypes == ["torch.float32"], f"[train] bf16: the state is not float32: {dtypes}")
+    return out
+
+
 def train_phase(torch, card: str) -> dict:
     """[train]: engine/training.py at full width on the card.
 
@@ -3027,7 +3174,8 @@ def train_phase(torch, card: str) -> dict:
     timed only); the checkpoint round trip
     bit for bit; a resumed run against the uninterrupted one with
     cudnn.deterministic on for that check (bit for bit, else within 1e-4
-    relative, printed)."""
+    relative, printed).  Then the same in bf16 mixed precision
+    (``train_bf16``)."""
     from facerecognition_infrenceengine_tpu_torch.engine import training
     from facerecognition_infrenceengine_tpu_torch.models import arcface
     from facerecognition_infrenceengine_tpu_torch.models.weights import load_or_init
@@ -3037,8 +3185,9 @@ def train_phase(torch, card: str) -> dict:
     dev = torch.device("cuda", 0)
     out = {"card": card, "classes": TRAIN_CLASSES, "batch": TRAIN_BATCH}
     model = load_or_init("arcface_r50", arcface.iresnet50(), 1).to(dev)
-    flops = iresnet_flops(model, 112) * 3 * TRAIN_BATCH + 3 * 2.0 * TRAIN_BATCH * \
-        TRAIN_CLASSES * 512
+    net_flops = iresnet_flops(model, 112) * 3 * TRAIN_BATCH
+    cls_flops = 3 * 2.0 * TRAIN_BATCH * TRAIN_CLASSES * 512
+    flops = net_flops + cls_flops
     gen = torch.Generator(device=dev).manual_seed(13)
     protos = torch.randn((TRAIN_PROTOTYPES, 112, 112, 3), generator=gen, device=dev)
 
@@ -3088,7 +3237,7 @@ def train_phase(torch, card: str) -> dict:
     check(lerr <= 1e-5 and p_err <= 1e-5 and errs["batch_stats"] <= 1e-5
           and errs["opt_state"] <= 5e-3, f"[train] the mesh step differs: {out['mesh_vs_unsharded']}")
     check(np.isfinite(float(loss)), "[train] non-finite loss")
-    del new, mnew, permuted
+    del mnew, permuted
 
     # fit: the step's time, rate and memory
     batches = [batch() for _ in range(TRAIN_STEPS)]
@@ -3131,6 +3280,10 @@ def train_phase(torch, card: str) -> dict:
     out["step_ms_tf32"] = sorted(times[2:])[len(times[2:]) // 2]
     say(f"[train] {card} | the same step with TF32 on (this measure only): "
         f"{out['step_ms_tf32']:.2f} ms (p50 of steps 3-6) against {step_ms:.2f} ms with it off")
+
+    out["bf16"] = train_bf16(torch, card, model, state, new, loss, images, labels, batches,
+                             net_flops, cls_flops)
+    del new
 
     # the checkpoint round trip and the resume
     ckpt = tempfile.mkdtemp(prefix="fre_ckpt_")

@@ -23,6 +23,20 @@ The torch form of ``facerecognition_infrenceengine_tpu/engine/training.py``:
 - ``save_checkpoint`` / ``restore_checkpoint`` (``torch.save``, written
   under a temporary name then ``os.replace``) and ``fit``.
 
+Mixed precision, as the reference trains a flax model built with
+``dtype=jnp.bfloat16``: a model built with ``dtype=torch.bfloat16``
+(``models/arcface.iresnet50(dtype=...)``, ``models/mobilefacenet``) keeps
+float32 parameters, statistics and momentum (the master weights SGD
+updates); its forward casts the input to bf16, its convs, Dense and PReLU
+read their parameters cast to bf16 inside autograd (so their gradients
+reach the leaves in float32), and every BatchNorm here takes its batch
+statistics over the input promoted to float32, normalises in float32 and
+rounds its output to bf16.  The embedding comes out float32 (the model's
+last cast, the reference's ``astype(jnp.float32)``), so the logits and the
+loss are float32.  A model whose parameters were cast to bf16
+(``models/layers.cast_keep_bn_f32``, the serving engine's) is refused:
+SGD on bf16 weights would drop most updates below one bf16 step.
+
 The mesh step runs the model layer by layer over the list of data shards
 from its ``torch.fx`` graph, with each BatchNorm module taking every
 shard's statistics; a model that does not trace, or that calls a
@@ -79,7 +93,9 @@ def _batch_norm(mod, name: str, xs, ws, bs, stats: dict, new_stats: dict, root):
     """Train-mode BatchNorm over data shards ``xs`` (one tensor a device,
     channels at dim 1) with the statistics of all of them: each shard's sum
     and sum of squares go to ``root``, the mean and biased variance come
-    back.  The new running statistics land in ``new_stats``."""
+    back.  The new running statistics land in ``new_stats``.  Each shard
+    is normalised in float32 and returned in its input's dtype (flax's
+    ``BatchNorm(dtype=...)`` rounds its output so)."""
     dims = [0] + list(range(2, xs[0].dim()))
     count = sum(x.numel() // x.shape[1] for x in xs)
     s1 = sum(x.float().sum(dims).to(root) for x in xs)
@@ -94,8 +110,8 @@ def _batch_norm(mod, name: str, xs, ws, bs, stats: dict, new_stats: dict, root):
     for x, w, b in zip(xs, ws, bs):
         shape = [1, -1] + [1] * (x.dim() - 2)
         mul = torch.rsqrt(var.to(x.device) + mod.eps) * w
-        out.append((x.float() - mean.to(x.device).view(shape)) * mul.view(shape)
-                   + b.view(shape))
+        y = (x.float() - mean.to(x.device).view(shape)) * mul.view(shape) + b.view(shape)
+        out.append(y.to(x.dtype))
     return out
 
 
@@ -104,6 +120,13 @@ def _check_model(model: nn.Module) -> None:
         if _is_bn(mod) and not (mod.affine and mod.track_running_stats and mod.momentum):
             raise ValueError(f"BatchNorm {name}: the step needs affine, running statistics "
                              "and a fixed momentum")
+    for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+        if t.is_floating_point() and t.dtype != torch.float32:
+            raise ValueError(
+                f"{name} is {t.dtype}: the step updates float32 master weights.  For a "
+                f"mixed-precision step build the model with float32 parameters and a compute "
+                f"dtype (the dtype= constructor argument, e.g. iresnet50(dtype=torch.bfloat16)) "
+                f"instead of casting its parameters")
 
 
 def _stats_of(model: nn.Module) -> dict:
@@ -168,12 +191,22 @@ def _embed(model: nn.Module, state: dict, images, params=None):
     return emb, new_stats
 
 
+class _LeafTracer(torch.fx.Tracer):
+    """torch.fx's tracer, keeping the port's conv, Dense and PReLU
+    (``models/layers``: torch's own, reading their parameters in the input's
+    dtype) as leaves as it keeps torch's."""
+
+    def is_leaf_module(self, m: nn.Module, qualname: str) -> bool:
+        return isinstance(m, (nn.Conv2d, nn.Linear, nn.PReLU)) or super().is_leaf_module(
+            m, qualname)
+
+
 def _traced(model: nn.Module):
     """The model's ``torch.fx`` graph, for the layer-by-layer forward over
     data shards; refuses what that forward cannot hold to global batch
     statistics."""
     try:
-        gm = torch.fx.symbolic_trace(model)
+        gm = torch.fx.GraphModule(model, _LeafTracer().trace(model))
     except Exception as e:  # fx raises many kinds for untraceable code
         raise ValueError(f"the mesh step runs {type(model).__name__} layer by layer over "
                          f"the data shards (torch.fx) and it does not trace: {e}") from e
@@ -195,7 +228,10 @@ def _traced(model: nn.Module):
 
 
 def _apply_leaf(mod: nn.Module, p: dict, x):
-    """A leaf module on one shard with the parameters ``p``."""
+    """A leaf module on one shard with the parameters ``p``; a conv, Dense
+    or PReLU reads them in the shard's dtype, as ``models/layers``' do."""
+    if isinstance(mod, (nn.Conv2d, nn.Linear, nn.PReLU)):
+        p = {k: v.to(x.dtype) for k, v in p.items()}
     if isinstance(mod, nn.Conv2d):
         return mod._conv_forward(x, p["weight"], p.get("bias"))
     if isinstance(mod, nn.Linear):

@@ -7,6 +7,13 @@ BN -> flatten -> Dense(512) -> BN feature head.  Public inputs are NHWC;
 the module runs NCHW inside.  The Dense flattens NCHW (channel-major), so
 ``models/weights.py`` permutes the flax kernel's NHWC rows.
 
+``dtype`` is the compute dtype, as the reference's flax ``dtype``: the
+parameters and BatchNorm statistics stay float32, the input is cast to
+``dtype``, convs, the Dense and PReLU read their parameters cast to it, and
+each BatchNorm normalises in float32 and rounds its output to it.  The
+serving engine instead casts a float32-built module with
+``layers.cast_keep_bn_f32``; the forward then computes in the cast dtype.
+
 Preprocessing (insightface): RGB, (x - 127.5) / 127.5.  Embeddings are not
 normalized here; callers L2-normalize.
 """
@@ -18,21 +25,21 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import BN_EPS
+from .layers import BN_EPS, Conv2d, Linear, PReLU, compute_dtype
 
 
 class IBasicBlock(nn.Module):
     def __init__(self, in_ch: int, planes: int, stride: int = 1):
         super().__init__()
         self.BatchNorm_0 = nn.BatchNorm2d(in_ch, eps=BN_EPS)
-        self.Conv_0 = nn.Conv2d(in_ch, planes, 3, 1, 1, bias=False)
+        self.Conv_0 = Conv2d(in_ch, planes, 3, 1, 1, bias=False)
         self.BatchNorm_1 = nn.BatchNorm2d(planes, eps=BN_EPS)
-        self.PReLU_0 = nn.PReLU(planes)
-        self.Conv_1 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.PReLU_0 = PReLU(planes)
+        self.Conv_1 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.BatchNorm_2 = nn.BatchNorm2d(planes, eps=BN_EPS)
         self.shortcut = stride != 1 or in_ch != planes
         if self.shortcut:
-            self.Conv_2 = nn.Conv2d(in_ch, planes, 1, stride, 0, bias=False)
+            self.Conv_2 = Conv2d(in_ch, planes, 1, stride, 0, bias=False)
             self.BatchNorm_3 = nn.BatchNorm2d(planes, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -51,11 +58,13 @@ class IResNet(nn.Module):
 
     def __init__(self, depths: Sequence[int] = (3, 4, 14, 3),
                  widths: Sequence[int] = (64, 128, 256, 512),
-                 embed_dim: int = 512, input_size: int = 112):
+                 embed_dim: int = 512, input_size: int = 112,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, widths[0], 3, 1, 1, bias=False)
+        self.dtype = dtype
+        self.Conv_0 = Conv2d(3, widths[0], 3, 1, 1, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(widths[0], eps=BN_EPS)
-        self.PReLU_0 = nn.PReLU(widths[0])
+        self.PReLU_0 = PReLU(widths[0])
         blocks, in_ch = [], widths[0]
         for depth, width in zip(depths, widths):
             blocks.append(IBasicBlock(in_ch, width, 2))
@@ -66,13 +75,15 @@ class IResNet(nn.Module):
             self.add_module(f"IBasicBlock_{i}", block)
         self.BatchNorm_1 = nn.BatchNorm2d(widths[-1], eps=BN_EPS)
         side = input_size // 16
-        self.Dense_0 = nn.Linear(widths[-1] * side * side, embed_dim)
+        self.Dense_0 = Linear(widths[-1] * side * side, embed_dim)
         self.Dense_0.flatten_chw = (widths[-1], side, side)
         self.BatchNorm_2 = nn.BatchNorm1d(embed_dim, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, 112, 112, 3] NHWC scaled to [-1, 1] -> [B, 512] float32."""
-        x = x.permute(0, 3, 1, 2).to(self.Conv_0.weight.dtype)
+        """x: [B, 112, 112, 3] NHWC scaled to [-1, 1] -> [B, 512] float32
+        (the last BatchNorm's output in the compute dtype, then float32, as
+        the reference's ``astype(jnp.float32)``)."""
+        x = x.permute(0, 3, 1, 2).to(compute_dtype(self, self.Conv_0))
         x = self.PReLU_0(self.BatchNorm_0(self.Conv_0(x)))
         for i in range(self.num_blocks):
             x = getattr(self, f"IBasicBlock_{i}")(x)
@@ -81,12 +92,12 @@ class IResNet(nn.Module):
         return self.BatchNorm_2(x).float()
 
 
-def iresnet50() -> IResNet:
-    return IResNet(depths=(3, 4, 14, 3))
+def iresnet50(dtype: torch.dtype = torch.float32) -> IResNet:
+    return IResNet(depths=(3, 4, 14, 3), dtype=dtype)
 
 
-def iresnet18() -> IResNet:
-    return IResNet(depths=(2, 2, 2, 2))
+def iresnet18(dtype: torch.dtype = torch.float32) -> IResNet:
+    return IResNet(depths=(2, 2, 2, 2), dtype=dtype)
 
 
 def preprocess(images: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,49 @@ name.  Padding is explicit and symmetric (``kernel // 2``), as in
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+
+
+def compute_dtype(model: nn.Module, first: nn.Module) -> torch.dtype:
+    """The dtype ``model``'s forward computes in: ``model.dtype`` over
+    float32 parameters (flax's ``dtype`` over its float32 ``param_dtype``),
+    else the dtype the parameters were cast to (``cast_keep_bn_f32``, as the
+    serving engine casts its modules).  ``first`` is the module whose weight
+    tells which; the weight is read from ``_parameters`` so that torch.fx
+    sees a dtype, not a traced value."""
+    w = first._parameters["weight"].dtype
+    return model.dtype if w == torch.float32 else w
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that reads its parameters in its input's dtype: float32
+    parameters under a bf16 forward are cast at use, inside autograd, so
+    their gradient stays float32 (flax's ``promote_dtype``).  With the
+    input in the parameters' dtype it is ``nn.Conv2d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  None if self.bias is None else self.bias.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that reads its parameters in its input's dtype (see
+    ``Conv2d``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
+
+
+class PReLU(nn.PReLU):
+    """``nn.PReLU`` that reads its slope in its input's dtype (the
+    reference's ``a.astype(x.dtype)``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 def cast_keep_bn_f32(module: nn.Module, device, dtype: torch.dtype,

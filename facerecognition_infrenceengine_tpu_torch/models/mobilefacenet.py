@@ -11,7 +11,8 @@ kernel [kH, kW, 1, C] (``feature_group_count`` C) is torch's [C, 1, kH, kW].
 
 Public inputs are NHWC scaled to [-1, 1] (the engine calls
 ``arcface.preprocess``); the module runs NCHW inside.  Callers L2-normalize
-the output.
+the output.  ``dtype`` is the compute dtype over float32 parameters, as in
+``models/arcface.IResNet``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import BN_EPS
+from .layers import BN_EPS, Conv2d, Linear, PReLU, compute_dtype
 
 
 class ConvBlock(nn.Module):
@@ -31,12 +32,11 @@ class ConvBlock(nn.Module):
                  groups: int = 1, linear: bool = False):
         super().__init__()
         pad = (kernel - 1) // 2
-        self.Conv_0 = nn.Conv2d(in_ch, features, kernel, stride, pad, groups=groups,
-                                bias=False)
+        self.Conv_0 = Conv2d(in_ch, features, kernel, stride, pad, groups=groups, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(features, eps=BN_EPS)
         self.linear = linear  # no activation (the paper's "linear" blocks)
         if not linear:
-            self.PReLU_0 = nn.PReLU(features)
+            self.PReLU_0 = PReLU(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.BatchNorm_0(self.Conv_0(x))
@@ -65,8 +65,10 @@ class MobileFaceNet(nn.Module):
     # (expansion, features, repeats, stride) per stage
     STAGES = ((2, 64, 5, 2), (4, 128, 1, 2), (2, 128, 6, 1), (4, 128, 1, 2), (2, 128, 2, 1))
 
-    def __init__(self, embed_dim: int = 512, stages: Sequence = STAGES, input_size: int = 112):
+    def __init__(self, embed_dim: int = 512, stages: Sequence = STAGES, input_size: int = 112,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.ConvBlock_0 = ConvBlock(3, 64, kernel=3, stride=2)  # 56
         self.ConvBlock_1 = ConvBlock(64, 64, kernel=3, groups=64)
         blocks, in_ch = [], 64
@@ -85,12 +87,12 @@ class MobileFaceNet(nn.Module):
             side = (side - 1) // stride + 1
         self.gd = side
         self.ConvBlock_3 = ConvBlock(512, 512, kernel=side, groups=512, linear=True)
-        self.Dense_0 = nn.Linear(512, embed_dim, bias=False)
+        self.Dense_0 = Linear(512, embed_dim, bias=False)
         self.BatchNorm_0 = nn.BatchNorm1d(embed_dim, eps=BN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, 112, 112, 3] NHWC scaled to [-1, 1] -> [B, 512] float32."""
-        x = x.permute(0, 3, 1, 2).to(self.ConvBlock_0.Conv_0.weight.dtype)
+        x = x.permute(0, 3, 1, 2).to(compute_dtype(self, self.ConvBlock_0.Conv_0))
         x = self.ConvBlock_1(self.ConvBlock_0(x))
         for i in range(self.num_blocks):
             x = getattr(self, f"Bottleneck_{i}")(x)
@@ -100,5 +102,5 @@ class MobileFaceNet(nn.Module):
         return self.BatchNorm_0(self.Dense_0(x)).float()
 
 
-def mobilefacenet() -> MobileFaceNet:
-    return MobileFaceNet()
+def mobilefacenet(dtype: torch.dtype = torch.float32) -> MobileFaceNet:
+    return MobileFaceNet(dtype=dtype)
