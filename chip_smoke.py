@@ -69,6 +69,23 @@ Phases, one flushed line each:
    heads' on the same K3 crops (gender wherever the logits differ by more
    than 1e-4, age within 1, landmarks within 1e-3 px).  The attribute
    call's device ms, exact graphs (f32) against the synthetic heads (bf16).
+7b. [convert]: tools/synthetic_pack.make_pack (det_10g, w600k_r50 and
+   w600k_mbf as torch mirrors at their published widths, random weights,
+   plus three attribute graphs; exported by the TorchScript exporter)
+   converted on this host by models/convert_onnx.convert (no JAX) into a
+   temporary FRE_WEIGHTS_DIR; the port's f32 det_10g (640x640), r50 and
+   MobileFaceNet with the converted leaves against the mirrors on the card
+   (1 - cos 1e-5; atol 1e-4 normalized, det atol / rtol 1e-3);
+   FaceAnalysis("buffalo_l", detection + recognition) in bf16 serves the
+   pack on the rgb path's 3 requests and matches request 1's faces against
+   an f32 gallery (K3, K1), runs the pack's exact-graph heads once (K3 at
+   96 and 192) against the mirror heads, and its embeddings lie within
+   1 - cos 1e-3 of an f32 engine on the same crops; then the ops surface:
+   warp_faces on the card within 1e-4 of the CPU, K3 against
+   warp_faces at 0, 10, -20 and 30 degrees within tests/test_ops_warp2pass.py's
+   budgets, cosine_scores within 1e-5 of a float64 product.  The
+   convert_path line: the host seconds of the pack and the conversion,
+   the tensors written, request wall and device ms.
 8. gallery: 50,000 employees (request 1's rgb-path embeddings plus seeded
    distractors) written into a memory:// Datastore in bulk, as the
    enrollment worker writes them (one GridFS put a person, one
@@ -525,13 +542,17 @@ def in_turns(torch, fa, fb, iters: int = 50):
     return (a1 + a2) / 2, (b1 + b2) / 2
 
 
-def in_canvas_kps(rng, n: int, width: int = FRAME_W, height: int = FRAME_H, dst=None):
-    """n faces' landmarks: ARCFACE_DST at scales 0.5-4 and rotations within
-    +-0.5 rad, centred so every landmark lies inside a width x height frame."""
+def in_canvas_kps(rng, n: int, width: int = FRAME_W, height: int = FRAME_H, dst=None,
+                  theta: float | None = None, scales: tuple = (0.5, 4.0)):
+    """n faces' landmarks: ARCFACE_DST at scales 0.5-4 (``scales``) and
+    rotations within +-0.5 rad (all at ``theta`` when given), centred so
+    every landmark lies inside a width x height frame."""
     base = dst - dst.mean(0)
     kps = []
+    fixed = theta
     for _ in range(n):
-        scale, theta = rng.uniform(0.5, 4.0), rng.uniform(-0.5, 0.5)
+        scale = rng.uniform(*scales)
+        theta = rng.uniform(-0.5, 0.5) if fixed is None else fixed
         rot = np.array([[np.cos(theta), -np.sin(theta)],
                         [np.sin(theta), np.cos(theta)]]) * scale
         pts = base @ rot.T
@@ -3328,6 +3349,361 @@ def train_phase(torch, card: str) -> dict:
 
 
 
+CONVERT_ROTATIONS = (0, 10, -20, 30)  # degrees: tests/test_ops_warp2pass.py's angles
+CONVERT_FACES = 256                   # in-canvas faces at each angle
+CONVERT_MAX_SCALE = 1.2               # that test's face scale: K3 reads pyramid level 0
+
+
+def smooth_frame(h: int = FRAME_H, w: int = FRAME_W, seed: int = 0) -> np.ndarray:
+    """tests/test_ops_warp2pass.py's smooth float32 RGB frame: the two-pass
+    warp's budgets against the exact bilinear warp are set on it."""
+    rng = np.random.default_rng(seed)
+    small = rng.uniform(0, 255, (h // 16, w // 16, 3)).astype(np.float32)
+    yy = np.linspace(0, small.shape[0] - 1, h)
+    xx = np.linspace(0, small.shape[1] - 1, w)
+    y0, x0 = yy.astype(int), xx.astype(int)
+    y1, x1 = np.minimum(y0 + 1, small.shape[0] - 1), np.minimum(x0 + 1, small.shape[1] - 1)
+    fy, fx = (yy - y0)[:, None, None], (xx - x0)[None, :, None]
+    img = ((small[y0][:, x0] * (1 - fy) + small[y1][:, x0] * fy) * (1 - fx)
+           + (small[y0][:, x1] * (1 - fy) + small[y1][:, x1] * fy) * fx)
+    return img.astype(np.float32)
+
+
+def inside_kps(rng, theta: float, n: int = CONVERT_FACES) -> np.ndarray:
+    """n in-canvas faces at rotation theta (scales 0.5-CONVERT_MAX_SCALE)
+    whose whole 112x112 crop samples inside the FRAME_W x FRAME_H frame:
+    past the edge the bilinear warp interpolates toward the clamped row's
+    neighbour while K3 replicates the border, by design."""
+    import torch
+
+    from facerecognition_infrenceengine_tpu_torch.ops.align import (
+        ARCFACE_DST, _invert_affine, umeyama_similarity)
+
+    corners = torch.tensor([[0.0, 0.0, 1.0], [111.0, 0.0, 1.0], [0.0, 111.0, 1.0],
+                            [111.0, 111.0, 1.0]])
+    kept = []
+    while sum(len(k) for k in kept) < n:
+        cand = in_canvas_kps(rng, n, dst=ARCFACE_DST, theta=theta,
+                             scales=(0.5, CONVERT_MAX_SCALE))
+        m_inv = _invert_affine(umeyama_similarity(torch.from_numpy(cand),
+                                                  torch.from_numpy(ARCFACE_DST)))
+        src = torch.einsum("mij,kj->mki", m_inv, corners)  # [n, 4 corners, (x, y)]
+        ok = ((src >= 0) & (src < torch.tensor([FRAME_W - 1.0, FRAME_H - 1.0]))).all(-1).all(-1)
+        kept.append(cand[ok.numpy()])
+    return np.concatenate(kept)[:n]
+
+
+def convert_phase(torch, card: str, requests: list) -> tuple:
+    """[convert]: a buffalo_l-shaped pack converted on the card's host by the
+    port's converter (no JAX), then served.
+
+    a. tools/synthetic_pack.make_pack (torch mirrors of det_10g, w600k_r50
+       and w600k_mbf at their published widths, random weights and BN
+       statistics, plus three attribute graphs; the TorchScript export)
+       converted by models/convert_onnx.convert into a temporary
+       FRE_WEIGHTS_DIR.
+    b. The port's f32 det_10g, r50 and MobileFaceNet on the card with the
+       converted leaves (every leaf equal to its .npz leaf) against the torch
+       mirrors on the card on the same inputs: embedders 1 - cos 1e-5 and
+       atol 1e-4 normalized, det_10g's scores, bbox and kps 1 - cos 1e-5 and
+       atol / rtol 1e-3 on a 640x640 canvas (tests/test_weight_dropin.py).
+    c. FaceAnalysis("buffalo_l", detection + recognition), bf16 at 640x640,
+       picks the pack up (its modules hold the converted leaves), serves the
+       rgb path's 3 requests and match_faces against an f32 gallery of
+       request 1's faces plus seeded distractors (K3, K1; counters zeroed
+       just before): every face of request 1 finds its own id at >= 0.99 (or
+       a twin's: faces found in the canvas' black padding share one crop);
+       then the pack's exact-graph attribute heads run once on request 1's
+       boxes (K3 at 96 and 192) and agree with the mirror heads on the same
+       crops.  The bf16 embeddings lie within 1 - cos 1e-3 of an f32 engine
+       on the same K3 crops.
+    d. The ops surface on the card: warp_faces on the card equals warp_faces
+       on the CPU within 1e-4 on request 1's landmarks; K3's 112 crop
+       (warp_faces_two_pass) of 256 faces of the smooth frame whose crops lie
+       inside it, at each of 0, 10, -20 and 30 degrees (scales 0.5-1.2), keeps
+       tests/test_ops_warp2pass.py's budgets against the bilinear warp_faces
+       (max < 0.35 at 0 degrees; at every angle each face's mean < 1 and
+       median < 0.5); cosine_scores equals q.float() @ g.float().T and a
+       float64 product within 1e-5.
+
+    Returns (the convert_path dict, a served request for the device-time
+    trace taken after the kernels' own)."""
+    import contextlib
+    import warnings
+
+    from facerecognition_infrenceengine_tpu_torch.core.config import (
+        Config, EngineConfig, ThresholdConfig)
+    from facerecognition_infrenceengine_tpu_torch.engine.gallery import GalleryManager
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine
+    from facerecognition_infrenceengine_tpu_torch.engine.recognizer import (
+        FaceRecognitionProcessor)
+    from facerecognition_infrenceengine_tpu_torch.models import (
+        arcface, convert_onnx, mobilefacenet, scrfd)
+    from facerecognition_infrenceengine_tpu_torch.models.weights import (
+        flax_layout, load_flat, load_or_init)
+    from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis, letterbox
+    from facerecognition_infrenceengine_tpu_torch.ops import (
+        cosine_scores, match_kernel, warp2pass, warp_kernel)
+    from facerecognition_infrenceengine_tpu_torch.ops.align import warp_faces
+    from facerecognition_infrenceengine_tpu_torch.store import Datastore
+    from tools import synthetic_pack
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    pack_dir = tempfile.mkdtemp(prefix="fre-pack-")
+    wdir = tempfile.mkdtemp(prefix="fre-converted-")
+    weights_env = os.environ.get("FRE_WEIGHTS_DIR")
+    try:
+        # ------------------------------------------- a. the pack, converted
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the TorchScript exporter's notices
+            mirrors = synthetic_pack.make_pack(pack_dir, seed=0, det_canvas=CANVAS)
+        pack_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            written = convert_onnx.convert(pack_dir, wdir)
+        convert_s = time.perf_counter() - t0
+        check(sorted(os.listdir(wdir)) == sorted(
+            ["scrfd_det_10g.npz", "arcface_r50.npz", "arcface_mobilefacenet.npz",
+             "attr_genderage.onnx", "attr_2d106det.onnx", "attr_1k3d68.onnx"]),
+            f"[convert] files written: {sorted(os.listdir(wdir))}")
+        say(f"[convert] make_pack(seed=0, det_canvas={CANVAS}) {pack_s:.2f} s (TorchScript "
+            f"export); models/convert_onnx.convert {convert_s:.2f} s on the host: {written}")
+        os.environ["FRE_WEIGHTS_DIR"] = wdir
+
+        # ------------------------------- b. f32 on the card against the mirrors
+        def leaves_equal(module, name) -> int:
+            flat = load_flat(os.path.join(wdir, f"{name}.npz"))
+            state = module.state_dict()
+            layout = flax_layout(module)
+            check({path for _, path, _, _ in layout} == set(flat),
+                  f"[convert] {name}: the module's leaves are not the pack's")
+            for key, path, _, conv in layout:
+                want = torch.from_numpy(np.ascontiguousarray(conv(flat[path])))
+                check(torch.equal(state[key].detach().cpu(), want.to(state[key].dtype)),
+                      f"[convert] {name}: {key} is not its .npz leaf {path}")
+            return len(layout)
+
+        rng = np.random.default_rng(11)
+        f32_err = {}
+        with torch.inference_mode():
+            for name, factory, onnx in (("arcface_r50", arcface.iresnet50, "w600k_r50.onnx"),
+                                        ("arcface_mobilefacenet", mobilefacenet.mobilefacenet,
+                                         "w600k_mbf.onnx")):
+                model = load_or_init(name, factory())
+                leaves_equal(model, name)
+                model, mirror = model.to(dev), mirrors[onnx].to(dev).eval()
+                x = torch.from_numpy(rng.uniform(-1, 1, (FRAMES, 112, 112, 3)).astype(
+                    np.float32)).to(dev)
+                got = torch.nn.functional.normalize(model(x), dim=1)
+                want = torch.nn.functional.normalize(mirror(x.permute(0, 3, 1, 2)), dim=1)
+                cos = float((got * want).sum(1).min())
+                err = float((got - want).abs().max())
+                check(1.0 - cos <= 1e-5 and err <= 1e-4,
+                      f"[convert] {name} f32 against its mirror: 1-cos {1 - cos}, err {err}")
+                f32_err[name] = {"one_minus_cos": 1.0 - cos, "max_abs_err": err}
+                mirrors[onnx].cpu()
+                del model
+            det = load_or_init("scrfd_det_10g", scrfd.SCRFD(scrfd.CONFIGS["det_10g"]))
+            leaves_equal(det, "scrfd_det_10g")
+            det, mirror = det.to(dev), mirrors["det_10g.onnx"].to(dev).eval()
+            x = torch.from_numpy(rng.uniform(-1, 1, (1, CANVAS, CANVAS, 3)).astype(
+                np.float32)).to(dev)
+            for part, g, w in zip(("scores", "bbox", "kps"), det(x), mirror(x.permute(0, 3, 1, 2))):
+                check(g.shape == w.shape, f"[convert] det_10g {part}: {g.shape} vs {w.shape}")
+                g64, w64 = g.double().flatten(), w.double().flatten()
+                cos = float(g64 @ w64 / (g64.norm() * w64.norm() + 1e-30))
+                bad = float(((g - w).abs() - (1e-3 + 1e-3 * w.abs())).max())
+                check(1.0 - cos <= 1e-5 and bad <= 0.0,
+                      f"[convert] det_10g {part} against the mirror: 1-cos {1 - cos}, "
+                      f"excess over atol/rtol 1e-3 {bad}")
+                f32_err[f"det_10g_{part}"] = {"one_minus_cos": 1.0 - cos,
+                                              "max_abs_err": float((g - w).abs().max())}
+            mirrors["det_10g.onnx"].cpu()
+            del det
+        say(f"[convert] f32 on the card against the torch mirrors (TF32 off): " + "; ".join(
+            f"{k} 1-cos {v['one_minus_cos']:.2e} err {v['max_abs_err']:.2e}"
+            for k, v in f32_err.items()))
+
+        # ----------------------------------------------- c. the served path
+        cfg = Config(thresholds=ThresholdConfig(detection=DET_THRESH),
+                     engine=EngineConfig(det_size=(CANVAS, CANVAS)))
+        t0 = time.perf_counter()
+        capp = FaceAnalysis("buffalo_l", cfg=cfg.engine, device="cuda",
+                            allowed_modules=("detection", "recognition"))
+        capp.prepare(ctx_id=0, det_thresh=DET_THRESH)
+        cengine = capp._ensure_engine()
+        build_s = time.perf_counter() - t0
+        n_leaves = leaves_equal(cengine.detector, "scrfd_det_10g") + leaves_equal(
+            cengine.embedder, "arcface_r50")
+        gal = GalleryManager(Datastore(cfg), cfg, initial_load=False, device="cuda")
+        proc = FaceRecognitionProcessor(gal, face_app=capp, cfg=cfg)
+        warp_kernel.warp_rois.launches = 0
+        warp_kernel.warp_rois.launches_by_size.clear()
+        match_kernel.gallery_top1.launches = 0
+        c_ms, c_faces, c_results = [], [], []
+        for r, frames in enumerate(requests):
+            t0 = time.perf_counter()
+            faces = capp.get_batch(frames)
+            if r == 0:  # enrol request 1's faces plus seeded unit distractors
+                t1 = time.perf_counter()
+                own = [f"c0-f{i}-s{j}" for i, fl in enumerate(faces) for j in range(len(fl))]
+                emb = np.stack([f.normed_embedding for fl in faces for f in fl])
+                dis = np.random.default_rng(12).normal(size=(CAPACITY_ROWS - len(own), 512))
+                matrix = np.concatenate([emb, dis / np.linalg.norm(dis, axis=1, keepdims=True)])
+                ids = own + [f"distractor-{k}" for k in range(len(dis))]
+                gal.set_snapshot(ids, {p: {"type": "employee", "name": p} for p in ids},
+                                 matrix.astype(np.float32), company_id="site-c")
+                torch.cuda.synchronize()
+                setup_ms = (time.perf_counter() - t1) * 1e3
+            out = [proc.match_faces(frame, fl, "site-c", draw=False)[1]
+                   for frame, fl in zip(frames, faces)]
+            torch.cuda.synchronize()
+            c_ms.append((time.perf_counter() - t0) * 1e3 - (setup_ms if r == 0 else 0.0))
+            c_faces.append(sum(len(fl) for fl in faces))
+            c_results.append((faces, out))
+        check(all(n > 0 for n in c_faces), f"[convert] a request found no face: {c_faces}")
+        faces0, out0 = c_results[0]
+        # the pack's random detector finds faces in the canvas' black padding too:
+        # their crops, and so their embeddings, are identical, and a tie goes to
+        # the lowest index.  A face must find its own id, or one enrolled with
+        # its embedding (1 - cos <= 1e-5)
+        row_of = {p: i for i, p in enumerate(own)}
+        k, twins = 0, 0
+        for fl, rows in zip(faces0, out0):
+            for row in rows:
+                pid = row["person_id"]
+                same = pid == own[k] or (pid in row_of and float(
+                    emb[row_of[pid]] @ emb[k]) >= 1 - 1e-5)
+                twins += pid != own[k]
+                check(row["recognized"] and same and row["similarity"] >= 0.99,
+                      f"[convert] request 1 face {own[k]} matched {pid} at "
+                      f"{row['similarity']}")
+                k += 1
+        distinct = len({tuple(np.round(e, 5)) for e in emb})
+        # the pack's exact-graph attribute heads, once, on request 1's boxes
+        canvases = torch.from_numpy(np.stack([letterbox(np.ascontiguousarray(f[..., ::-1]),
+                                                        (CANVAS, CANVAS))[0]
+                                              for f in requests[0]])).to(dev)
+        c_list = [f for fl in faces0 for f in fl]
+        c_idx = np.asarray([b for b, fl in enumerate(faces0) for _ in fl], np.int64)
+        c_boxes = np.stack([f.bbox for f in c_list]).astype(np.float32)
+        gender, age, lm = cengine.attributes(canvases, c_idx, c_boxes)
+        check(cengine._attr_runners is not None and cengine._attr_sizes == ATTR_SIZES,
+              f"[convert] the pack's attribute graphs were not picked up: {cengine._attr_sizes}")
+        c_launches = {"warp_rois": dict(warp_kernel.warp_rois.launches_by_size),
+                      "gallery_top1": match_kernel.gallery_top1.launches}
+        say(f"[convert] launches on the path {c_launches}")
+        check(c_launches["warp_rois"].get(112, 0) == REQUESTS
+              and c_launches["warp_rois"].get(ATTR_SIZES[0]) == 1
+              and c_launches["warp_rois"].get(ATTR_SIZES[1]) == 1
+              and c_launches["gallery_top1"] == sum(1 for fs, _ in c_results for fl in fs if fl),
+              f"[convert] K3 once a request at 112 and once at 96 and 192, K1 once a frame "
+              f"with faces: {c_launches}")
+        with torch.inference_mode():
+            idx_d, boxes_d = torch.from_numpy(c_idx).to(dev), torch.from_numpy(c_boxes).to(dev)
+            ga = mirrors["genderage.onnx"].to(dev).eval()(warp2pass.warp_boxes_two_pass(
+                canvases, idx_d, boxes_d, ATTR_SIZES[0], scale_factor=1.5).permute(
+                0, 3, 1, 2).float()).cpu().numpy()
+            lm_norm = mirrors["2d106det.onnx"].to(dev).eval()(warp2pass.warp_boxes_two_pass(
+                canvases, idx_d, boxes_d, ATTR_SIZES[1], scale_factor=1.5).permute(
+                0, 3, 1, 2).float()).reshape(len(c_list), -1, 2)
+            m_inv = warp2pass.boxes_to_affines(boxes_d, ATTR_SIZES[1], 1.5)
+            lm_want = (torch.einsum("mij,mkj->mki", m_inv[:, :, :2],
+                                    (lm_norm + 1.0) * ATTR_SIZES[1] / 2)
+                       + m_inv[:, None, :, 2]).cpu().numpy()
+        decided = np.abs(ga[:, 0] - ga[:, 1]) > 1e-4
+        attr_age_err = float(np.abs(age - np.round(ga[:, 2] * 100.0)).max())
+        attr_lm_err = float(np.abs(lm - lm_want).max())
+        check(np.array_equal(gender[decided], np.argmax(ga[:, :2], 1)[decided])
+              and attr_age_err <= 1.0 and attr_lm_err <= 1e-3,
+              f"[convert] the exact graphs against the mirror heads: gender, age err "
+              f"{attr_age_err}, landmarks err {attr_lm_err} px")
+        # bf16 against an f32 engine on the same K3 crops (the fused rgb path
+        # embeds from the letterboxed canvases)
+        f32_engine = FaceEngine(EngineConfig(det_size=(CANVAS, CANVAS), dtype="float32"),
+                                device="cuda")
+        e32 = f32_engine.embed_faces(canvases, c_idx, np.stack([f.kps for f in c_list]).astype(
+            np.float32))
+        e16 = np.stack([f.normed_embedding for f in c_list])
+        bf16_cos = float((e16 * e32).sum(1).min())
+        check(1.0 - bf16_cos <= 1e-3, f"[convert] bf16 against f32 on the same crops: "
+                                      f"1-cos {1.0 - bf16_cos}")
+        del f32_engine
+        say(f"[convert] {card} | FaceAnalysis(buffalo_l) from the converted pack (bf16, "
+            f"{n_leaves} leaves equal to the pack's) built in {build_s:.2f} s; request wall ms "
+            f"{[round(t, 1) for t in c_ms]}, faces {c_faces}; request 1: {k}/{k} faces matched "
+            f"their own id ({twins} of them a twin's: {distinct} distinct embeddings; min score "
+            f"{min(r['similarity'] for rows in out0 for r in rows):.6f}); "
+            f"bf16 vs f32 on the same crops 1-cos {1.0 - bf16_cos:.2e}; exact-graph heads vs "
+            f"the mirrors: gender equal on {int(decided.sum())} decided, age err "
+            f"{attr_age_err:.0f}, landmarks err {attr_lm_err:.2e} px")
+    finally:
+        if weights_env is None:
+            os.environ.pop("FRE_WEIGHTS_DIR", None)
+        else:
+            os.environ["FRE_WEIGHTS_DIR"] = weights_env
+        shutil.rmtree(pack_dir, ignore_errors=True)
+        shutil.rmtree(wdir, ignore_errors=True)
+
+    # --------------------------------------------------- d. the ops surface
+    wf_err = 0.0
+    for b, fl in enumerate(faces0):
+        if not fl:
+            continue
+        img = np.ascontiguousarray(requests[0][b][..., ::-1])
+        kps = torch.from_numpy(np.stack([f.kps for f in fl]).astype(np.float32))
+        on_card = warp_faces(torch.from_numpy(img).to(dev), kps.to(dev)).cpu()
+        on_cpu = warp_faces(torch.from_numpy(img), kps)
+        wf_err = max(wf_err, float((on_card - on_cpu).abs().max()))
+    check(wf_err <= 1e-4, f"[convert] warp_faces on the card against the CPU: {wf_err}")
+    frame = torch.from_numpy(smooth_frame()).to(dev)
+    two_pass = {}
+    for i, deg in enumerate(CONVERT_ROTATIONS):
+        kps = torch.from_numpy(inside_kps(np.random.default_rng(13 + i), np.deg2rad(deg))).to(dev)
+        got = warp2pass.warp_faces_two_pass(frame[None], torch.zeros(
+            CONVERT_FACES, dtype=torch.int32, device=dev), kps)
+        diff = (got - warp_faces(frame, kps)).abs().flatten(1)
+        worst = {"max": float(diff.max()), "mean": float(diff.mean(1).max()),
+                 "median": float(diff.median(1).values.max())}
+        two_pass[deg] = worst
+        check((worst["max"] < 0.35 if deg == 0 else True) and worst["mean"] < 1.0
+              and worst["median"] < 0.5,
+              f"[convert] K3 against the bilinear warp at {deg} degrees: {worst}")
+    q = torch.from_numpy(e16).to(dev)
+    g = torch.from_numpy(matrix.astype(np.float32)).to(dev)
+    cs_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, gd = q.to(dtype), g.to(dtype)
+        got = cosine_scores(qd, gd)
+        want64 = qd.double() @ gd.double().T
+        cs_err[str(dtype).split(".")[1]] = {
+            "vs_expression": float((got - qd.float() @ gd.float().T).abs().max()),
+            "vs_float64": float((got.double() - want64).abs().max())}
+    check(all(v <= 1e-5 for e in cs_err.values() for v in e.values()),
+          f"[convert] cosine_scores on the card: {cs_err}")
+    say(f"[convert] {card} | ops: warp_faces card vs CPU on request 1's {len(c_list)} faces "
+        f"max err {wf_err:.2e}; K3 against warp_faces on {CONVERT_FACES} faces a angle (worst "
+        f"face) " + ", ".join(f"{d} deg max {v['max']:.3f} mean {v['mean']:.3f} median "
+                              f"{v['median']:.3f}" for d, v in two_pass.items())
+        + f"; cosine_scores {cs_err}")
+
+    def request():
+        return [proc.match_faces(f, fl, "site-c", draw=False)
+                for f, fl in zip(requests[1], capp.get_batch(requests[1]))]
+
+    return ({"card": card, "pack": "tools/synthetic_pack.make_pack (TorchScript export)",
+             "pack_s": pack_s, "convert_host_s": convert_s, "tensors_written": written,
+             "f32_vs_mirrors": f32_err, "build_s": build_s, "requests": REQUESTS,
+             "frames_per_request": FRAMES, "request_ms": c_ms, "faces_per_request": c_faces,
+             "gallery_setup_ms": setup_ms, "launches": c_launches,
+             "bf16_vs_f32_one_minus_cos": 1.0 - bf16_cos, "attr_age_err": attr_age_err,
+             "attr_landmark_err_px": attr_lm_err, "warp_faces_card_vs_cpu": wf_err,
+             "two_pass_vs_bilinear": two_pass, "cosine_scores_err": cs_err,
+             "phase_s": time.perf_counter() - t_phase}, request)
+
+
 def main() -> int:
     import torch
 
@@ -3982,6 +4358,12 @@ def main() -> int:
         f"{len(o_faces)} faces against the float32 heads on the same crops: gender equal on "
         f"{int(decided.sum())} decided, age err {age_err:.0f}, landmarks err "
         f"{lm_px_err:.2e} px")
+
+    # ---------------------------------------------------------- convert path
+    # a buffalo_l-shaped pack converted on this host by the port's converter
+    # (no JAX), held against its torch mirrors and served; its launches join
+    # the kernels line
+    convert_out, convert_request = convert_phase(torch, card, requests)
 
     # ---------------------------------------------------------- gallery path
     # the store-backed gallery: 50,000 employees written into a memory://
@@ -4706,6 +5088,9 @@ def main() -> int:
         f"{rgb_dev_ms:.3f} ms)")
     say(f"[onnx] {card} | attributes on {len(o_faces)} faces, device {o_dev_ms:.3f} ms a call "
         f"(exact graphs, float32) against {s_dev_ms:.3f} ms (the synthetic heads, bf16)")
+    convert_out["device_ms_a_request"] = device_ms(torch, convert_request, 3)
+    say(f"[convert] {card} | device {convert_out['device_ms_a_request']:.3f} ms a request "
+        f"(the converted pack, bf16)")
 
     # ----------------------------------------------------------- int8 path
     # the opt-in scale modes (int8 embedder and detector backbone, the packed
@@ -4779,6 +5164,7 @@ def main() -> int:
                                   "attributes_device_ms_synthetic_bf16": s_dev_ms,
                                   "faces": len(o_faces), "age_err": age_err,
                                   "landmark_err_px": lm_px_err}}))
+    say(json.dumps({"convert_path": convert_out}))
     say(json.dumps({"gallery_path": {"card": card, "persons": CAPACITY_ROWS,
                                      "write_s": g_write_s, **{f"{k}_{n}": v for k, t in
                                                               g_times.items()
@@ -4812,6 +5198,12 @@ def main() -> int:
                 k["launches"] += by_size.get(k["out_size"], 0)
             elif k["name"] == "gallery_top1":
                 k["launches"] += k1
+    # and the [convert] phase's (K3 at 112, 96 and 192, K1)
+    for k in kernels:
+        if k["name"].startswith("warp_rois") and not k.get("packed"):
+            k["launches"] += convert_out["launches"]["warp_rois"].get(k["out_size"], 0)
+        elif k["name"] == "gallery_top1":
+            k["launches"] += convert_out["launches"]["gallery_top1"]
     # and the [int8] phase's (K3 at 112, raw and packed, and K1) and the
     # [mesh] phase's (K1 and K2 once a shard, K3 and K4 once a data shard)
     for k in kernels:

@@ -92,6 +92,32 @@ class IResNet(nn.Module):
         return self.BatchNorm_2(x).float()
 
 
+def layer_execution_order(depths: Sequence[int] = (3, 4, 14, 3)) -> list:
+    """[(kind, flax path)] in torch/ONNX trace order, for the ONNX converter.
+
+    The stem's conv, BN and PReLU; a block's BatchNorm_0, Conv_0,
+    BatchNorm_1, PReLU_0, Conv_1, BatchNorm_2, then (at a stage's stride-2
+    entry) the shortcut's Conv_2 and BatchNorm_3; the tail's BatchNorm_1,
+    Dense_0 and BatchNorm_2.  ``dense_flatten`` marks the Dense after the
+    NCHW flatten, whose rows the converter permutes to the flax NHWC order.
+    """
+    order = [("conv", "params/Conv_0"), ("bn", "params/BatchNorm_0"),
+             ("prelu", "params/PReLU_0")]
+    i = 0
+    for depth in depths:
+        for j in range(depth):
+            base = f"params/IBasicBlock_{i}"
+            order += [("bn", f"{base}/BatchNorm_0"), ("conv", f"{base}/Conv_0"),
+                      ("bn", f"{base}/BatchNorm_1"), ("prelu", f"{base}/PReLU_0"),
+                      ("conv", f"{base}/Conv_1"), ("bn", f"{base}/BatchNorm_2")]
+            if j == 0:  # stage entry: stride 2, the conv + BN shortcut
+                order += [("conv", f"{base}/Conv_2"), ("bn", f"{base}/BatchNorm_3")]
+            i += 1
+    order += [("bn", "params/BatchNorm_1"), ("dense_flatten", "params/Dense_0"),
+              ("bn", "params/BatchNorm_2")]
+    return order
+
+
 def iresnet50(dtype: torch.dtype = torch.float32) -> IResNet:
     return IResNet(depths=(3, 4, 14, 3), dtype=dtype)
 

@@ -12,7 +12,8 @@ kernel [kH, kW, 1, C] (``feature_group_count`` C) is torch's [C, 1, kH, kW].
 Public inputs are NHWC scaled to [-1, 1] (the engine calls
 ``arcface.preprocess``); the module runs NCHW inside.  Callers L2-normalize
 the output.  ``dtype`` is the compute dtype over float32 parameters, as in
-``models/arcface.IResNet``.
+``models/arcface.IResNet``.  ``layer_execution_order`` lists the layers in
+trace order for the ONNX converter (insightface's ``w600k_mbf.onnx``).
 """
 
 from __future__ import annotations
@@ -104,3 +105,28 @@ class MobileFaceNet(nn.Module):
 
 def mobilefacenet(dtype: torch.dtype = torch.float32) -> MobileFaceNet:
     return MobileFaceNet(dtype=dtype)
+
+
+def layer_execution_order(stages: Sequence = MobileFaceNet.STAGES) -> list:
+    """[(kind, flax path)] in trace order for the ONNX converter: each
+    ConvBlock traces Conv -> BN (-> PReLU), a bottleneck its three
+    ConvBlocks in turn, the tail Dense_0 then BatchNorm_0."""
+    def convblock(path: str, linear: bool = False) -> list:
+        out = [("conv", f"{path}/Conv_0"), ("bn", f"{path}/BatchNorm_0")]
+        return out if linear else out + [("prelu", f"{path}/PReLU_0")]
+
+    order = convblock("params/ConvBlock_0") + convblock("params/ConvBlock_1")
+    n = 0
+    for _expansion, _features, repeats, _stride in stages:
+        for _ in range(repeats):
+            base = f"params/Bottleneck_{n}"
+            order += convblock(f"{base}/ConvBlock_0") + convblock(f"{base}/ConvBlock_1")
+            order += convblock(f"{base}/ConvBlock_2", linear=True)
+            n += 1
+    order += convblock("params/ConvBlock_2") + convblock("params/ConvBlock_3", linear=True)
+    return order + [("dense", "params/Dense_0"), ("bn", "params/BatchNorm_0")]
+
+
+def preprocess(images: torch.Tensor) -> torch.Tensor:
+    """uint8/float RGB [B, 112, 112, 3] -> [-1, 1]."""
+    return (images.float() - 127.5) / 127.5

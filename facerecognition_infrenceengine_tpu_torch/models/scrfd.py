@@ -201,6 +201,36 @@ class SCRFD(nn.Module):
                 torch.cat(kpss, 1).float())
 
 
+def layer_execution_order(cfg: SCRFDConfig) -> list:
+    """[(kind, flax path)] in torch/ONNX trace order, for the ONNX converter
+    (``models/convert_onnx.py``).
+
+    Kinds: ``convbn`` (a Conv node then a BatchNormalization node, leaves
+    under <path>/Conv_0 and <path>/BatchNorm_0), ``conv`` (a bias-carrying
+    Conv, leaves under <path>), ``scale`` (a 1-element Mul constant, the
+    leaf at <path>).  The shared head is traced once per level in ONNX; the
+    repeats reuse the same initializers, which the converter skips by name.
+    """
+    order = [("convbn", "params/backbone/stem1"),
+             ("convbn", "params/backbone/stem2"),
+             ("convbn", "params/backbone/stem3")]
+    for i, blocks in enumerate(cfg.stage_blocks):
+        for j in range(blocks):
+            base = f"params/backbone/layer{i + 1}_b{j}"
+            order.append(("convbn", f"{base}/conv1"))
+            order.append(("convbn", f"{base}/conv2"))
+            if block_has_downsample(cfg, i, j):
+                order.append(("convbn", f"{base}/downsample"))
+    for name, count in (("lateral", 3), ("fpn", 3), ("down", 2), ("pafpn", 2)):
+        order += [("conv", f"params/neck/{name}{i}") for i in range(count)]
+    order += [("convbn", f"params/head/stack{i}") for i in range(cfg.head_depth)]
+    order += [("conv", "params/head/cls"), ("conv", "params/head/reg")]
+    # one Mul (Scale) constant a level, met in level order as the head re-traces
+    order += [("scale", f"params/bbox_scale_{lvl}") for lvl in range(len(STRIDES))]
+    order.append(("conv", "params/head/kps"))
+    return order
+
+
 def num_anchors_total(height: int, width: int) -> int:
     return sum((height // s) * (width // s) * NUM_ANCHORS for s in STRIDES)
 

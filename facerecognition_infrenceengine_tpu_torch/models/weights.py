@@ -14,7 +14,9 @@ submodule is named after its flax counterpart (``Conv_0``, ``BatchNorm_0``,
 the inverse of ``from_flax``; ``train_state_from_flax`` /
 ``train_state_to_flax`` carry a training state (params, BatchNorm
 statistics, SGD momentum) between the reference's trees and
-``engine/training.py``'s layout.
+``engine/training.py``'s layout.  ``save_variables`` / ``load_variables``
+write and read the nested trees as the reference's do, which is how
+``models/convert_onnx.py`` writes a converted pack.
 """
 
 from __future__ import annotations
@@ -34,15 +36,32 @@ def weights_dir() -> str:
                           os.path.join(os.path.dirname(__file__), "_weights"))
 
 
+def flatten_shapes(tree, prefix: str = "") -> dict:
+    """Nested dicts -> {``/``-joined path: leaf}, the leaves as they are
+    (shapes, arrays or tensors)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(flatten_shapes(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+    return out
+
+
 def flatten_tree(tree, prefix: str = "") -> dict:
     """Nested flax variables (dicts of arrays) -> {``/``-joined path: numpy
     array}, the ``.npz`` key form."""
-    if not isinstance(tree, dict):
-        return {prefix: np.asarray(tree)}
-    out = {}
-    for k, v in tree.items():
-        out.update(flatten_tree(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
-    return out
+    return {k: np.asarray(v) for k, v in flatten_shapes(tree, prefix).items()}
+
+
+def save_variables(path: str, variables: dict) -> None:
+    """Write a nested tree of arrays as one ``.npz`` of ``/``-joined keys."""
+    np.savez(path, **flatten_tree(variables))
+
+
+def load_variables(path: str) -> dict:
+    """``.npz`` -> the nested tree of numpy arrays (``save_variables``'s
+    inverse)."""
+    return unflatten_tree(load_flat(path))
 
 
 def load_flat(path: str) -> dict:

@@ -498,6 +498,35 @@ def test_onnx_runner_and_mobilefacenet_on_the_card_equal_the_cpu(cuda):
     assert cos.min() >= 1 - 1e-4, cos
 
 
+def test_umeyama_and_warp_faces_on_the_card_equal_the_cpu(cuda):
+    """The Umeyama, its inverse and the bilinear aligner give the same bits
+    on the card as on the CPU: the sums run in a fixed elementwise order
+    and every division is a true one (rotated, mirrored, out-of-frame and
+    degenerate landmarks, on a noise frame where an ulp of a coordinate
+    shows)."""
+    from facerecognition_infrenceengine_tpu_torch.ops.align import warp_faces
+
+    rng = np.random.default_rng(21)
+    frame = torch.from_numpy(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
+    base = ARCFACE_DST - ARCFACE_DST.mean(0)
+    kps = []
+    for _ in range(62):
+        scale, theta = rng.uniform(0.3, 4.0), rng.uniform(-np.pi, np.pi)
+        rot = np.array([[np.cos(theta), -np.sin(theta)],
+                        [np.sin(theta), np.cos(theta)]]) * scale
+        kps.append(base @ rot.T * rng.choice([-1.0, 1.0], 2) + rng.uniform(-100, 740, 2))
+    kps += [np.zeros((5, 2)), np.full((5, 2), 37.5)]
+    kps = torch.from_numpy(np.stack(kps).astype(np.float32))
+    dst = torch.from_numpy(ARCFACE_DST)
+    m_cpu = umeyama_similarity(kps, dst)
+    m_card = umeyama_similarity(kps.to(cuda), dst)
+    assert torch.equal(m_card.cpu(), m_cpu)
+    assert torch.equal(_invert_affine(m_card).cpu(), _invert_affine(m_cpu))
+    for size in (112, 96):
+        assert torch.equal(warp_faces(frame.to(cuda), kps.to(cuda), size).cpu(),
+                           warp_faces(frame, kps, size))
+
+
 def test_microbatcher_serves_packs_uploaded_on_submit(cuda):
     """The serving host path on the card: two capture threads encode and
     upload yuv420 packs (upload_on_submit), the batcher stacks them on the

@@ -112,6 +112,29 @@ def test_bfloat16_rounds_no_worse_than_the_reference(trained):
     assert _worst(f32, got) <= _worst(f32, want)
 
 
+def test_bfloat16_dtype_forward_is_the_served_module(trained):
+    """``mobilefacenet(dtype=torch.bfloat16)`` (float32 parameters, the
+    trainer's eval forward) equals the served module (the float32 module
+    cast by ``cast_keep_bn_f32``) bit for bit, so both bf16 paths carry the
+    miss the test above pins (ROADMAP Queue 3 item 2: the 1e-3 budget
+    against flax bf16 stays unmet; printed, not asserted)."""
+    flat, crops = trained
+    from facerecognition_infrenceengine_tpu_torch.models.weights import load_tree
+
+    tm = load_tree(mobilefacenet.mobilefacenet(dtype=torch.bfloat16), flat)
+    assert {p.dtype for p in tm.parameters()} == {torch.float32}
+    served = cast_keep_bn_f32(load_tree(mobilefacenet.mobilefacenet(), flat), "cpu",
+                              torch.bfloat16)
+    x = arcface.preprocess(torch.from_numpy(crops))
+    with torch.no_grad():
+        got, want = tm(x), served(x)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
+    ref = np.asarray(jmobilefacenet.mobilefacenet(dtype=jnp.bfloat16).apply(
+        unflatten_tree(flat), jarcface.preprocess(jnp.asarray(crops))))
+    print(f"MobileFaceNet(dtype=bf16) vs flax bf16: max 1-cos {_worst(ref, got.numpy()):.3e}")
+
+
 def test_engine_embeds_like_the_reference(trained):
     """FaceEngine(rec_arch="mobilefacenet") with the reference's variables:
     embed_crops through arcface.preprocess, as the reference's engine."""
