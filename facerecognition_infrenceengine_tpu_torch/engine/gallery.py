@@ -278,7 +278,13 @@ class _CompanySnapshot:
     @metrics.on_device
     @torch.inference_mode()
     def match(self, query_embeddings: np.ndarray, k: int = 1):
-        """[B, D] normalized queries -> (scores [B, k], ids [B, k] of str|None)."""
+        """[B, D] normalized queries -> (scores [B, k], ids [B, k] of str|None),
+        as a ``gallery.match`` span: the upload, the top-1 kernel, its
+        download and the ids."""
+        with metrics.span("gallery.match"):
+            return self._match(query_embeddings, k)
+
+    def _match(self, query_embeddings: np.ndarray, k: int):
         b_real = len(query_embeddings)
         if self.size == 0 or b_real == 0:
             return np.full((b_real, k), -1.0, np.float32), [[None] * k for _ in range(b_real)]

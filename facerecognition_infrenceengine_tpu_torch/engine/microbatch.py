@@ -15,10 +15,16 @@ one rather than queueing behind it.
 The dispatch and resolver threads bind themselves to the face app's CUDA
 device when it names one (a thread PyTorch has not seen starts on device 0);
 every card-side call of the batch runs on that device's current stream.
+
+Each drained batch takes a process-wide batch id: the ``microbatch.dispatch``
+and ``microbatch.resolve`` spans carry it, and while spans are recorded
+each frame's wait from ``submit`` to its drain is a ``batcher.queue`` span
+of that batch, on the submitting thread.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from concurrent.futures import Future
@@ -27,6 +33,8 @@ from typing import Any, Dict
 from ..core import metrics
 from ..core.config import EngineConfig, get_config
 from ..core.device import bind_thread
+
+_BATCH_IDS = itertools.count(1)
 
 
 def _bind_device(face_app) -> None:
@@ -104,6 +112,9 @@ class MicroBatcher:
             future.set_result([])
             return future
         future._t_submit = time.perf_counter()  # type: ignore[attr-defined]
+        if metrics.recording():
+            future._queued = (time.perf_counter_ns(),  # type: ignore[attr-defined]
+                              metrics.thread_id())
         if prepare is not None:
             with self._lock:
                 admitted = (len(self._slots.get(source, ())) < self.depth)
@@ -195,10 +206,11 @@ class MicroBatcher:
         preparing and uploading the next batch."""
         _bind_device(self.face_app)
         while True:
-            inflight = q.get()
-            if inflight is None:
+            item = q.get()
+            if item is None:
                 return
-            with metrics.timer("microbatch.resolve"):
+            batch_id, inflight = item
+            with metrics.timer("microbatch.resolve", batch=batch_id):
                 self._resolve(inflight)
             with self._inflight_cv:
                 self._inflight_n -= 1
@@ -327,12 +339,20 @@ class MicroBatcher:
                 batch = self._drain()
                 if not batch:
                     continue
-                with metrics.timer("microbatch.dispatch"):
+                batch_id = next(_BATCH_IDS)
+                if metrics.recording():
+                    drained = time.perf_counter_ns()
+                    for _, fut in batch:
+                        queued = getattr(fut, "_queued", None)
+                        if queued:
+                            metrics.add_span("batcher.queue", queued[0], drained,
+                                             tid=queued[1], batch=batch_id)
+                with metrics.timer("microbatch.dispatch", batch=batch_id, frames=len(batch)):
                     nxt = self._dispatch(batch)
                 if nxt is not None:
                     with self._inflight_cv:
                         self._inflight_n += 1
-                    inflight_q.put(nxt)
+                    inflight_q.put((batch_id, nxt))
         finally:
             inflight_q.put(None)
             resolver.join(timeout=10)

@@ -38,6 +38,14 @@ row, each shard's program on its device, the outputs left on their shards
 the exact ONNX graphs when converted ones sit in the weights dir
 (``models/onnx_exec.py``), else the synthetic heads.
 
+Spans (``core/metrics``): each public entry is an ``engine.<module>`` span
+(``detect``, ``embed``, ``attributes``, ``fused``) and, at the first call of
+an entry at an input shape in the process, an ``engine.first_call`` timer
+inside it: cuDNN's plans, the kernels' first launches.  Each host-to-device
+copy is an ``engine.upload`` span (its ``bytes``), each blocking download
+an ``engine.wait`` span (the wait for the card and the copy), and the
+constructor the ``engine.init`` timer.
+
 Convolutions and the embedder's dense layer run through PyTorch (cuDNN /
 cuBLAS on the card), as the reference left them to XLA; the stem (K4), the
 face warp (K3) and the gallery top-1 (K1 / K2) are hand-written kernels.  On
@@ -48,7 +56,9 @@ switches TF32 off for cuDNN and cuBLAS.
 from __future__ import annotations
 
 import copy
+import functools
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -101,6 +111,77 @@ def _stride_rows(height: int, width: int) -> np.ndarray:
         n = (height // s) * (width // s) * scrfd.NUM_ANCHORS
         parts.append(np.full(n, float(s), np.float32))
     return np.concatenate(parts)
+
+
+def upload(array, device) -> torch.Tensor:
+    """A host array (or a tensor on another device) on ``device`` (a
+    resolved one, index and all): one copy, an ``engine.upload`` span
+    carrying its ``bytes``."""
+    t = array if isinstance(array, torch.Tensor) else torch.as_tensor(np.asarray(array))
+    if t.device == torch.device(device):
+        return t
+    with metrics.span("engine.upload", bytes=t.numel() * t.element_size()):
+        return t.to(device)
+
+
+def download(*tensors) -> tuple:
+    """Device tensors -> numpy arrays, as one ``engine.wait`` span: the
+    first copy waits for the card's queue."""
+    with metrics.span("engine.wait"):
+        return tuple(t.cpu().numpy() for t in tensors)
+
+
+_first_calls: set = set()
+_first_calls_lock = threading.Lock()
+
+
+def _frames_shape(frames, *_) -> tuple:
+    return tuple(frames.shape)
+
+
+def _faces_shape(frames, frame_idx, *_) -> tuple:
+    """A per-face entry's programs run at the frames' shape and the
+    bucketed face count."""
+    return tuple(frames.shape), bucket(len(frame_idx)) if len(frame_idx) else 0
+
+
+def _crops_shape(crops) -> tuple:
+    return (bucket(len(crops)) if len(crops) else 0,) + tuple(crops.shape[1:])
+
+
+def _entry(module: str, shape=_frames_shape):
+    """A public entry's spans: ``engine.<module>`` around the call and, when
+    the process has not yet called the entry at this input (``shape`` of
+    its positional arguments, the shapes its programs run at, and the first
+    one's dtype), the ``engine.first_call`` timer inside it."""
+    name = f"engine.{module}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(self, *args, **kwargs):
+            key = (fn.__name__, str(self.device), self.dtype, shape(*args),
+                   str(getattr(args[0], "dtype", "")))
+            with _first_calls_lock:
+                new = key not in _first_calls
+                _first_calls.add(key)
+            with metrics.span(name):
+                if not new:
+                    return fn(self, *args, **kwargs)
+                with metrics.timer("engine.first_call", entry=fn.__name__):
+                    return fn(self, *args, **kwargs)
+        return call
+    return wrap
+
+
+def _timed(name: str):
+    """Each call of the wrapped function runs inside ``metrics.timer(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with metrics.timer(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256)) -> int:
@@ -189,6 +270,7 @@ class FaceEngine:
     """
 
     @metrics.on_device
+    @_timed("engine.init")
     def __init__(self, cfg: EngineConfig | None = None, det_variables=None, rec_variables=None,
                  det_arch: str = "det_10g", rec_arch: str = "r50", seed: int = 0, device=None):
         self.cfg = cfg or get_config().engine
@@ -455,18 +537,18 @@ class FaceEngine:
     @metrics.on_device
     def _to_device(self, array) -> torch.Tensor:
         """A host array, or a tensor already uploaded, on the engine's device."""
-        if isinstance(array, torch.Tensor):
-            return array.to(self.device)
-        return torch.as_tensor(np.asarray(array)).to(self.device)
+        return upload(array, self.device)
 
     @metrics.on_device
+    @_entry("detect")
     @torch.inference_mode()
     def detect(self, frames_u8, det_threshold: float = 0.3) -> DetectionBatch:
         """frames_u8: [B, H, W, 3] RGB uint8 at the det canvas size."""
         outs = self._detect_impl(self._to_device(frames_u8), det_threshold)
-        return DetectionBatch(*(o.cpu().numpy() for o in outs))
+        return DetectionBatch(*download(*outs))
 
     @metrics.on_device
+    @_entry("embed", _faces_shape)
     @torch.inference_mode()
     def embed_faces(self, frames_u8, frame_idx, kps) -> np.ndarray:
         """Embed M faces of a batch of frames.
@@ -484,9 +566,10 @@ class FaceEngine:
         pad_kps[:m] = kps
         emb = self._embed_impl(self._to_device(frames_u8), self._to_device(pad_idx),
                                self._to_device(pad_kps))
-        return emb.cpu().numpy()[:m]
+        return download(emb)[0][:m]
 
     @metrics.on_device
+    @_entry("attributes", _faces_shape)
     @torch.inference_mode()
     def attributes(self, frames_u8, frame_idx, bboxes):
         """Gender [M] int32, age [M] float32 and landmark_2d_106 [M, 106, 2]
@@ -504,9 +587,10 @@ class FaceEngine:
         pad_boxes[:m] = bboxes
         outs = self._attributes_impl(self._to_device(frames_u8), self._to_device(pad_idx),
                                      self._to_device(pad_boxes))
-        return tuple(o.cpu().numpy()[:m] for o in outs)
+        return tuple(o[:m] for o in download(*outs))
 
     @metrics.on_device
+    @_entry("embed", _crops_shape)
     @torch.inference_mode()
     def embed_crops(self, crops_u8) -> np.ndarray:
         """Embed pre-aligned 112x112 crops [M, 112, 112, 3]."""
@@ -515,9 +599,10 @@ class FaceEngine:
             return np.zeros((0, self.cfg.embed_dim), np.float32)
         pad = np.zeros((bucket(m),) + tuple(crops_u8.shape[1:]), crops_u8.dtype)
         pad[:m] = crops_u8
-        return self._embed_crops_impl(self._to_device(pad)).cpu().numpy()[:m]
+        return download(self._embed_crops_impl(self._to_device(pad)))[0][:m]
 
     @metrics.on_device
+    @_entry("fused")
     @torch.inference_mode()
     def detect_align_embed(self, frames_u8, det_threshold: float = 0.3):
         """Fused fixed-capacity variant: device tensors (boxes, scores, kps,
@@ -525,6 +610,7 @@ class FaceEngine:
         return self._fused_impl(self._to_device(frames_u8), det_threshold)
 
     @metrics.on_device
+    @_entry("fused")
     @torch.inference_mode()
     def detect_align_embed_flat(self, frames_u8, det_threshold: float = 0.3) -> torch.Tensor:
         """Serving variant: one [B, F, 528] device tensor."""
@@ -569,6 +655,7 @@ class FaceEngine:
         return np.stack([native.pack_s2d4(frame) for frame in np.asarray(frames_u8)])
 
     @metrics.on_device
+    @_entry("fused")
     @torch.inference_mode()
     def detect_align_embed_packed(self, frames_p4_u8, det_threshold: float = 0.3):
         """Fused program on s2d4-packed u8 frames [B, H/4, W/4, 48]: device
@@ -576,6 +663,7 @@ class FaceEngine:
         return self._fused_packed_impl(self._to_device(frames_p4_u8), det_threshold)
 
     @metrics.on_device
+    @_entry("fused")
     @torch.inference_mode()
     def detect_align_embed_yuv420(self, frames_y24_u8, det_threshold: float = 0.3):
         """Fused program on packed-yuv420 frames [B, rows <= H/4, W/4, 24]
@@ -584,6 +672,7 @@ class FaceEngine:
         return self._fused_yuv_impl(self._to_device(frames_y24_u8), det_threshold)
 
     @metrics.on_device
+    @_entry("fused")
     @torch.inference_mode()
     def detect_align_embed_yuv420_flat(self, frames_y24_u8,
                                        det_threshold: float = 0.3) -> torch.Tensor:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
+from ..core import metrics
 from ..core.config import Config, get_config
 from ..models.zoo import FaceAnalysis
 from .gallery import GalleryManager
@@ -96,8 +97,14 @@ class FaceRecognitionProcessor:
         and the HUD drawn for each face when ``draw``.
 
         Returns (frame, results), one dict per face with bbox, det_score,
-        person_id, person_info, similarity and the ``recognized`` flag.
+        person_id, person_info, similarity and the ``recognized`` flag.  The
+        call is a ``decide.match`` span; the gallery's top-1 inside it a
+        ``gallery.match`` one.
         """
+        with metrics.span("decide.match"):
+            return self._match_faces(frame, faces, company_id, draw)
+
+    def _match_faces(self, frame: np.ndarray, faces: list, company_id: str, draw: bool):
         results = []
         if not faces:
             return frame, results

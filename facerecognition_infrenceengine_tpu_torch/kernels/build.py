@@ -12,6 +12,10 @@ flags, and are built at first use (a temporary name, then ``os.replace``,
 so concurrent builders never load a partial file).  A build failure raises
 with the compiler's output: nothing falls back to the plain versions.
 
+Loading a library, with its build where this checkout has none yet, is
+the ``kernels.build`` timer (a span while spans are recorded; ``library``
+"cuda" or "host").
+
 Every CUDA C entry returns ``cudaGetLastError()`` after its launches;
 ``check`` raises on anything but 0.  A C entry launches on the calling
 thread's current device, so each wrapper launches inside
@@ -29,6 +33,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..core import metrics
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -153,7 +159,8 @@ def lib() -> ctypes.CDLL:
     with _build_lock:
         if _lib is not None:
             return _lib
-        loaded = ctypes.CDLL(build())
+        with metrics.timer("kernels.build", library="cuda"):
+            loaded = ctypes.CDLL(build())
         for name, argtypes in SIGNATURES.items():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
@@ -229,7 +236,8 @@ def host_lib() -> ctypes.CDLL:
     with _build_lock:
         if _host_lib is not None:
             return _host_lib
-        loaded = ctypes.CDLL(build_host())
+        with metrics.timer("kernels.build", library="host"):
+            loaded = ctypes.CDLL(build_host())
         sigs = dict(HOST_SIGNATURES)
         if loaded.fre_have_jpeg():
             sigs.update(JPEG_SIGNATURES)

@@ -27,6 +27,12 @@ decodes the packs on the host and takes the raw-RGB path.  With
 from the calling (capture) thread, and a batch of such device packs is
 stacked on the device.
 
+Spans (``core/metrics``): the host's preparation of a batch (BGR -> RGB,
+letterbox, stacking, the native-frame pad, the yuv420 encode) is
+``facade.prep``; building the ``Face`` objects and per-frame lists and
+attaching embeddings and attributes is ``facade.faces``; the packed
+output's download is an ``engine.wait``.
+
 ``FakeFaceAnalysis`` is the deterministic test double: it decodes a face
 descriptor hidden in the pixels (``encode_fake_face``).
 """
@@ -43,7 +49,7 @@ from .. import native
 from ..core import metrics
 from ..core.config import EngineConfig, get_config
 from ..core.device import resolve_device
-from ..engine.pipeline import _YUV_BLACK, FaceEngine, bucket, yuv_black
+from ..engine.pipeline import _YUV_BLACK, FaceEngine, bucket, download, upload, yuv_black
 from ..ops.align import ARCFACE_DST
 from ..ops.yuv import yuv420p4_to_rgb_host
 
@@ -114,17 +120,19 @@ class FaceAnalysis:
     def _faces_from_fused_flat(flat, n: int, max_num: int) -> list:
         """Decode the packed [B, F, 528] output (boxes | score | kps | valid |
         emb) of the first ``n`` frames."""
-        flat = flat.cpu().numpy() if hasattr(flat, "cpu") else np.asarray(flat)
-        b, f, _ = flat.shape
-        boxes, det_scores = flat[..., :4], flat[..., 4]
-        kps, valid, emb = flat[..., 5:15].reshape(b, f, 5, 2), flat[..., 15] > 0.5, flat[..., 16:]
-        per_frame = []
-        for i in range(n):
-            faces = [Face(bbox=boxes[i, j], det_score=float(det_scores[i, j]),
-                          kps=kps[i, j], normed_embedding=emb[i, j])
-                     for j in range(f) if valid[i, j]]
-            per_frame.append(faces[:max_num] if max_num else faces)
-        return per_frame
+        flat = download(flat)[0] if hasattr(flat, "cpu") else np.asarray(flat)
+        with metrics.span("facade.faces"):
+            b, f, _ = flat.shape
+            boxes, det_scores = flat[..., :4], flat[..., 4]
+            kps, valid = flat[..., 5:15].reshape(b, f, 5, 2), flat[..., 15] > 0.5
+            emb = flat[..., 16:]
+            per_frame = []
+            for i in range(n):
+                faces = [Face(bbox=boxes[i, j], det_score=float(det_scores[i, j]),
+                              kps=kps[i, j], normed_embedding=emb[i, j])
+                         for j in range(f) if valid[i, j]]
+                per_frame.append(faces[:max_num] if max_num else faces)
+            return per_frame
 
     def _get_batch_fused(self, engine, stacked: np.ndarray, n: int, max_num: int) -> list:
         """One detect + align + embed call on canvases that are the native
@@ -138,18 +146,20 @@ class FaceAnalysis:
         return per_frame
 
     def _attach_attributes(self, engine, frames, per_frame: list) -> None:
-        flat_faces = [face for faces in per_frame for face in faces]
-        if not flat_faces:
-            return
-        idx = np.asarray([b for b, faces in enumerate(per_frame) for _ in faces], np.int32)
-        boxes = np.stack([f.bbox for f in flat_faces]).astype(np.float32)
+        with metrics.span("facade.faces"):
+            flat_faces = [face for faces in per_frame for face in faces]
+            if not flat_faces:
+                return
+            idx = np.asarray([b for b, faces in enumerate(per_frame) for _ in faces], np.int32)
+            boxes = np.stack([f.bbox for f in flat_faces]).astype(np.float32)
         gender, age, lm = engine.attributes(frames, idx, boxes)
-        for i, face in enumerate(flat_faces):
-            if "genderage" in self.allowed_modules:
-                face.gender = int(gender[i])
-                face.age = int(age[i])
-            if "landmark_2d_106" in self.allowed_modules:
-                face.landmark_2d_106 = lm[i]
+        with metrics.span("facade.faces"):
+            for i, face in enumerate(flat_faces):
+                if "genderage" in self.allowed_modules:
+                    face.gender = int(gender[i])
+                    face.age = int(age[i])
+                if "landmark_2d_106" in self.allowed_modules:
+                    face.landmark_2d_106 = lm[i]
 
     # ------------------------------------------------------ yuv420 transport
     @staticmethod
@@ -189,7 +199,7 @@ class FaceAnalysis:
         if self.cfg.upload_on_submit:
             # the engine's device (once built, ``self.device`` is it) without
             # building it here: N capture threads call this at once
-            return torch.from_numpy(pack).to(resolve_device(self.device))
+            return upload(pack, resolve_device(self.device))
         return pack
 
     @staticmethod
@@ -204,7 +214,7 @@ class FaceAnalysis:
             dev = tensors[0].device
             if len({tuple(p.shape) for p in packs}) == 1:
                 stacked = torch.stack([p.to(dev) if isinstance(p, torch.Tensor)
-                                       else torch.from_numpy(p).to(dev) for p in packs])
+                                       else upload(p, dev) for p in packs])
                 pad = bucket(len(packs)) - len(packs)
                 if pad:
                     stacked = torch.cat([stacked, yuv_black((pad,) + tuple(stacked.shape[1:3]),
@@ -219,8 +229,9 @@ class FaceAnalysis:
         return stacked
 
     def _dispatch_yuv(self, engine, frames):
-        packs = [f if self._is_pack(f) else self.encode_frame(f) for f in frames]
-        stacked = self._stack_yuv(packs, self.cfg.det_size[1])
+        with metrics.span("facade.prep"):
+            packs = [f if self._is_pack(f) else self.encode_frame(f) for f in frames]
+            stacked = self._stack_yuv(packs, self.cfg.det_size[1])
         return engine.detect_align_embed_yuv420_flat(stacked, det_threshold=self.det_thresh)
 
     def _decode_mixed_packs(self, frames: list) -> list:
@@ -251,9 +262,10 @@ class FaceAnalysis:
         dh, dw = self.cfg.det_size
         if ("recognition" in self.allowed_modules and not self._want_attrs
                 and all(min(dh / f.shape[0], dw / f.shape[1]) == 1.0 for f in frames)):
-            stacked = np.zeros((bucket(n), dh, dw, 3), np.uint8)
-            for i, f in enumerate(frames):
-                stacked[i] = letterbox(f[..., ::-1], self.cfg.det_size)[0]  # BGR -> RGB
+            with metrics.span("facade.prep"):
+                stacked = np.zeros((bucket(n), dh, dw, 3), np.uint8)
+                for i, f in enumerate(frames):
+                    stacked[i] = letterbox(f[..., ::-1], self.cfg.det_size)[0]  # BGR -> RGB
             flat = engine.detect_align_embed_flat(stacked, det_threshold=self.det_thresh)
             return lambda: self._faces_from_fused_flat(flat, n, max_num)
         results = self.get_batch(frames, max_num=max_num)
@@ -269,46 +281,51 @@ class FaceAnalysis:
         if self._yuv_eligible(engine, frames):
             return self._faces_from_fused_flat(self._dispatch_yuv(engine, frames),
                                                len(frames), max_num)
-        frames = self._decode_mixed_packs(frames)
-        # BGR -> RGB, one contiguous copy a frame for the letterbox and the
-        # embedder's batch
-        rgb_frames = [np.ascontiguousarray(f[..., ::-1]) for f in frames]
-        stacked = np.zeros((bucket(len(frames)),) + tuple(self.cfg.det_size) + (3,), np.uint8)
-        scales = []
-        for i, rgb in enumerate(rgb_frames):
-            stacked[i], scale = letterbox(rgb, self.cfg.det_size)
-            scales.append(scale)
+        with metrics.span("facade.prep"):
+            frames = self._decode_mixed_packs(frames)
+            # BGR -> RGB, one contiguous copy a frame for the letterbox and
+            # the embedder's batch
+            rgb_frames = [np.ascontiguousarray(f[..., ::-1]) for f in frames]
+            stacked = np.zeros((bucket(len(frames)),) + tuple(self.cfg.det_size) + (3,), np.uint8)
+            scales = []
+            for i, rgb in enumerate(rgb_frames):
+                stacked[i], scale = letterbox(rgb, self.cfg.det_size)
+                scales.append(scale)
         if "recognition" in self.allowed_modules and all(s == 1.0 for s in scales):
             return self._get_batch_fused(engine, stacked, len(frames), max_num)
 
         det = engine.detect(stacked, det_threshold=self.det_thresh)
-        per_frame, all_idx, all_kps = [], [], []
-        for b, scale in enumerate(scales):
-            # float32 coordinates over the codec's float32 scale, as the
-            # reference maps them back
-            faces = [Face(bbox=det.boxes[b, f] / scale, det_score=float(det.scores[b, f]),
-                          kps=det.kps[b, f] / scale)
-                     for f in range(det.valid.shape[1]) if det.valid[b, f]]
-            if max_num:
-                faces = faces[:max_num]
-            per_frame.append(faces)
-            all_idx += [b] * len(faces)
-            all_kps += [face.kps for face in faces]
+        with metrics.span("facade.faces"):
+            per_frame, all_idx, all_kps = [], [], []
+            for b, scale in enumerate(scales):
+                # float32 coordinates over the codec's float32 scale, as the
+                # reference maps them back
+                faces = [Face(bbox=det.boxes[b, f] / scale, det_score=float(det.scores[b, f]),
+                              kps=det.kps[b, f] / scale)
+                         for f in range(det.valid.shape[1]) if det.valid[b, f]]
+                if max_num:
+                    faces = faces[:max_num]
+                per_frame.append(faces)
+                all_idx += [b] * len(faces)
+                all_kps += [face.kps for face in faces]
         if all_idx:
-            # embed from the native frames, padded to a common size (a
-            # multiple of 8: the pyramid's three 2x2 pools) and a bucketed count
-            max_h = max(f.shape[0] for f in rgb_frames)
-            max_w = max(f.shape[1] for f in rgb_frames)
-            batch = np.zeros((bucket(len(rgb_frames)), max_h + (-max_h) % 8,
-                              max_w + (-max_w) % 8, 3), np.uint8)
-            for i, f in enumerate(rgb_frames):
-                batch[i, :f.shape[0], :f.shape[1]] = f
+            with metrics.span("facade.prep"):
+                # embed from the native frames, padded to a common size (a
+                # multiple of 8: the pyramid's three 2x2 pools) and a
+                # bucketed count
+                max_h = max(f.shape[0] for f in rgb_frames)
+                max_w = max(f.shape[1] for f in rgb_frames)
+                batch = np.zeros((bucket(len(rgb_frames)), max_h + (-max_h) % 8,
+                                  max_w + (-max_w) % 8, 3), np.uint8)
+                for i, f in enumerate(rgb_frames):
+                    batch[i, :f.shape[0], :f.shape[1]] = f
             batch = engine._to_device(batch)  # one upload for embedder and heads
             if "recognition" in self.allowed_modules:
                 emb = engine.embed_faces(batch, np.asarray(all_idx, np.int32),
                                          np.stack(all_kps).astype(np.float32))
-                for face, e in zip((f for faces in per_frame for f in faces), emb):
-                    face.normed_embedding = e
+                with metrics.span("facade.faces"):
+                    for face, e in zip((f for faces in per_frame for f in faces), emb):
+                        face.normed_embedding = e
             if self._want_attrs:
                 self._attach_attributes(engine, batch, per_frame)
         return per_frame

@@ -23,34 +23,30 @@ one ``torch._int_mm`` (cuBLASLt's int8 GEMM on the card) against the
 
 On a CUDA tensor ``int8_conv2d_nhwc`` runs ``torch._int_mm`` on the card or
 raises; on a CPU tensor it runs ``torch._int_mm``'s CPU kernel.
-``int8_conv2d_nhwc.calls`` counts its ``_int_mm`` calls.  While a
-torch.profiler trace runs, the passes are ranges of their own
-(``int8.quantize``, ``int8.im2col``, ``int8.int_mm``, ``int8.dequantize``),
-so a trace splits their device time; with no trace they cost one check.
+``int8_conv2d_nhwc.calls`` counts its ``_int_mm`` calls.  The passes are
+spans of their own (``int8.quantize``, ``int8.im2col``, ``int8.int_mm``,
+``int8.dequantize``; ``core/metrics.span``), so a trace splits their time;
+with recording off they cost one check.  They are spans and not profiler
+ranges opened while ``torch.autograd._profiler_enabled()``: that check is
+true only on the thread that started the profiler, so on the serving
+threads that run the int8 path such ranges never appear.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
+
+from ..core import metrics
 
 IM2COL_BUDGET = 256 * 2**20  # bytes of im2col + int32 output a chunk
 _ROWS = 32  # M a multiple of 32 (see above)
 _WIDE = ((8, torch.int64), (4, torch.int32), (2, torch.int16))
 
 
-def _span(name: str):
-    """A profiler range while a trace runs, else nothing."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
-
-
 def quantize_act(x: torch.Tensor, sa: float) -> torch.Tensor:
     """float32 activations -> int8 at per-tensor scale ``sa``."""
-    with _span("int8.quantize"):
+    with metrics.span("int8.quantize"):
         return torch.clamp(torch.round(x / sa), -127, 127).to(torch.int8)
 
 
@@ -115,7 +111,7 @@ def int8_conv2d_nhwc(x8: torch.Tensor, w8: torch.Tensor, stride: int, pad: int,
         n = min(step, b - s)
         rows = n * ho * wo
         mp = _pad_to(rows, _ROWS)
-        with _span("int8.im2col"):
+        with metrics.span("int8.im2col"):
             cols = torch.empty((mp, kp), dtype=torch.int8, device=x8.device)
             if kp != k:
                 cols[:, k:].zero_()
@@ -124,10 +120,10 @@ def int8_conv2d_nhwc(x8: torch.Tensor, w8: torch.Tensor, stride: int, pad: int,
             # one strided copy: window (kh, kw) order, then channels
             cols.view(word)[:rows, :k // g].view(n, ho, wo, kh, kw, ci // g).copy_(
                 win[s:s + n].permute(0, 1, 2, 4, 5, 3))
-        with _span("int8.int_mm"):
+        with metrics.span("int8.int_mm"):
             y = torch._int_mm(cols, wm)[:rows, :co].view(n, ho, wo, co)
         int8_conv2d_nhwc.calls += 1
-        with _span("int8.dequantize"):
+        with metrics.span("int8.dequantize"):
             if scale is None:
                 out[s:s + n] = y
             else:
