@@ -147,6 +147,16 @@ Phases, one flushed line each:
    them), timed in turns, beside atlas_ms.  K1's wrapper is also timed at
    B = 1 with its scratch cache emptied before every call (`ms_uncached`):
    the per-call allocations and library lookups the cache removes.
+   The epilogue kernel (csrc/epilogue.cu), bf16: every variant that
+   IResNet's serving forward launches (BN in place and into a second
+   tensor, BN + PReLU, BN + r, BN + BN(r)) bit-equal to its plain version
+   at each of IResNet-50's eight (channels, side) shapes, at the main
+   path's crop count (FRAMES x max_faces); then BN + PReLU and BN + BN(r)
+   at the 112x112 stage (B = 1,024, 64 channels) timed against the plain
+   version and against ATen's separate passes (`library_ms`), its bound
+   the bytes read and written (`epilogue_phase`, also run alone:
+   ``python3 -c "import chip_smoke; chip_smoke.epilogue_main()"``).  The
+   kernels row's `launches` are the [path] requests' own.
 10b. [mesh] (after the gallery phase): the sharded gallery and
    make_sharded_fused over a mesh of the distinct cards, or of cuda:0 named
    8 times (data 2 x gallery 4) on one card.  The gallery phase's 50,000
@@ -302,9 +312,16 @@ WARP_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/warp.cu"
 MATCH_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match.cu"
 MATCH_INT8_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match_int8.cu"
 STEM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/stem.cu"
+EPILOGUE_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/epilogue.cu"
+EPILOGUE_B = 1024               # IResNet-50's crops a buffalo_l.crowd batch (32 x 32)
+# IResNet-50's epilogue shapes (channels, side): the stem and stage 1's
+# entry at 112, then each stage's entry width at the side it reads and the
+# side it writes
+EPILOGUE_SHAPES = ((64, 112), (64, 56), (128, 56), (128, 28), (256, 28), (256, 14), (512, 14),
+                   (512, 7))
 # the kernels of csrc/ as torch.profiler names them
 HAND_KERNELS = ("warp_windows_kernel", "top1_f32_kernel", "top1_bf16_kernel", "top1_int8_kernel",
-                "fused_stem")
+                "fused_stem", "epilogue_kernel")
 INT8_MARGIN = 5e-3  # f32 top-1 lead over the runner-up above which int8 must agree
 # the [int8] phase: the opt-in scale modes (models/quant.py, models/packed_stem.py)
 INT8_VARIANTS = (("a", dict(embed_int8=True)), ("b", dict(det_int8=True)),
@@ -483,6 +500,122 @@ def profile_request(torch, fn, label: str, top: int = 12) -> None:
         f"{sum(r[0] for r in bn) / 1e3:.3f} ms device")
     for us, count, key in bn:
         say(f"[profile] {label}:   bn {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
+def epilogue_phase(torch, card: str) -> dict:
+    """The epilogue kernel in bf16, channels-last.  First, each variant that
+    arcface.serve_forward launches (BN, BN + PReLU, BN + r, BN + BN(r)),
+    in place and into a second tensor, bit-equal to the plain version at
+    every (channels, side) of EPILOGUE_SHAPES, at the main path's crops
+    (FRAMES x max_faces).  Then, at IResNet-50's 112x112 stage (B =
+    EPILOGUE_B, 64 channels), BN + PReLU (the stem, BatchNorm_1) and BN +
+    BN(r) (a stage entry's end, on a same-sized r), timed (CUDA events; the
+    kernel's device time from torch.profiler) against the plain version and
+    against ATen's separate passes as the module forward runs them; the
+    bound is the bytes read and written once."""
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.ops import epilogue_kernel
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(20)
+
+    def act(shape):
+        return (3 * torch.randn(shape, generator=gen, device=dev)).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    def bn(c):
+        m = torch.nn.BatchNorm2d(c).eval().to(dev)
+        with torch.no_grad():
+            for t in (m.weight, m.bias, m.running_mean):
+                t.copy_(torch.randn(c, generator=gen, device=dev))
+            m.running_var.copy_(torch.randn(c, generator=gen, device=dev).exp())
+        return m
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    b_path = FRAMES * EngineConfig().max_faces
+    checked = 0
+    with torch.inference_mode():
+        for c, side in EPILOGUE_SHAPES:
+            shape = (b_path, c, side, side)
+            x, r, bn_a, bn_b = act(shape), act(shape), bn(c), bn(c)
+            slope = (0.25 * torch.randn(c, generator=gen, device=dev)).to(torch.bfloat16)
+            for name, kw in (("bn", {}), ("bn_prelu", dict(prelu=slope)), ("bn_res", dict(res=r)),
+                             ("bn_bn_res", dict(res=r, res_bn=bn_b))):
+                want = epilogue_kernel.epilogue_plain(x, bn_a, out=torch.empty_like(x), **kw)
+                into = epilogue_kernel.epilogue(x, bn_a, out=torch.empty_like(x), **kw)
+                inplace = x.clone()
+                same = epilogue_kernel.epilogue(inplace, bn_a, **kw)
+                torch.cuda.synchronize()
+                check(same.data_ptr() == inplace.data_ptr(),
+                      f"[epilogue] {name} {shape}: not written in place")
+                for how, got in (("into out", into), ("in place", same)):
+                    check(torch.equal(bits(got), bits(want)),
+                          f"[epilogue] {name} {shape} {how}: {int((got != want).sum())} values "
+                          f"differ from the plain version")
+                    checked += 1
+                del want, into, inplace, same
+            del x, r
+    say(f"[epilogue] {card} | bit-equal to the plain version: {checked} cases (BN, BN + PReLU, "
+        f"BN + r, BN + BN(r); in place and into out) at {len(EPILOGUE_SHAPES)} shapes, "
+        f"B={b_path} bf16")
+
+    shape = (EPILOGUE_B, 64, 112, 112)
+    x, r, out = act(shape), act(shape), torch.empty(shape, dtype=torch.bfloat16, device=dev,
+                                                    memory_format=torch.channels_last)
+    bn_a, bn_b = bn(64), bn(64)
+    slope = (0.25 * torch.randn(64, generator=gen, device=dev)).to(torch.bfloat16)
+    prelu = torch.nn.PReLU(64).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        prelu.weight.copy_(slope)
+    cases = {"bn_prelu": (dict(prelu=slope), lambda: prelu(bn_a(x))),
+             "bn_bn_res": (dict(res=r, res_bn=bn_b), lambda: bn_a(x) + bn_b(r))}
+    rows = {}
+    with torch.inference_mode():
+        for name, (kw, aten) in cases.items():
+            want = epilogue_kernel.epilogue_plain(x, bn_a, out=torch.empty_like(x), **kw)
+            got = epilogue_kernel.epilogue(x, bn_a, out=out, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"[epilogue] {name}: {int((got != want).sum())} values differ from the plain "
+                  f"version")
+            check(torch.equal(aten().view(torch.int16), want.view(torch.int16)),
+                  f"[epilogue] {name}: the plain version differs from the module's passes")
+            del want, got
+            moved = x.numel() * 2 * (3 if "res" in kw else 2)
+            bnd, by = bound(moved, 0, "bfloat16")
+            rows[name] = {
+                "ms": time_ms(torch, lambda: epilogue_kernel.epilogue(x, bn_a, out=out, **kw),
+                              20),
+                "kernel_device_ms": kernel_ms(
+                    torch, lambda: epilogue_kernel.epilogue(x, bn_a, out=out, **kw),
+                    "epilogue_kernel", 10),
+                "plain_ms": time_ms(torch, lambda: epilogue_kernel.epilogue_plain(
+                    x, bn_a, out=out, **kw), 5, 1),
+                "library_ms": time_ms(torch, aten, 5, 1),
+                "library_device_ms": device_ms(torch, aten, 5),
+                "bound_ms": bnd, "bound_by": by, "bytes": moved}
+    for name, t in rows.items():
+        say(f"[epilogue] {card} | {name} B={EPILOGUE_B} 64x112x112 bf16: {t['ms']:.4f} ms, "
+            f"device {t['kernel_device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']} ({100 * t['bound_ms'] / t['kernel_device_ms']:.1f}%); plain "
+            f"{t['plain_ms']:.3f} ms; ATen's passes {t['library_ms']:.3f} ms (device "
+            f"{t['library_device_ms']:.3f}); bit-equal to the plain version")
+    return rows
+
+
+def epilogue_main() -> int:
+    """The epilogue phase alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    say(json.dumps({"epilogue": epilogue_phase(torch, card)}))
+    return 0
 
 
 def warp_footprint(torch, mats, r: int, out_size: int = 112, windows=None, atlas_shape=None,
@@ -3731,7 +3864,7 @@ def main() -> int:
     from facerecognition_infrenceengine_tpu_torch.models.zoo import FaceAnalysis, letterbox
     from facerecognition_infrenceengine_tpu_torch.native import plain
     from facerecognition_infrenceengine_tpu_torch.ops import (
-        match_kernel, stem_kernel, warp2pass, warp_kernel, yuv)
+        epilogue_kernel, match_kernel, stem_kernel, warp2pass, warp_kernel, yuv)
     from facerecognition_infrenceengine_tpu_torch.ops.align import (
         ARCFACE_DST, _invert_affine, umeyama_similarity)
     from facerecognition_infrenceengine_tpu_torch.store import Datastore, ObjectId
@@ -3777,6 +3910,7 @@ def main() -> int:
 
     warp_kernel.warp_rois.launches = 0
     match_kernel.gallery_top1.launches = 0
+    epilogue_kernel.epilogue.launches = 0
     torch.cuda.reset_peak_memory_stats()
     request_ms, faces_per_request, results = [], [], []
     setup_ms = 0.0
@@ -3802,7 +3936,8 @@ def main() -> int:
         faces_per_request.append(sum(len(fl) for fl in faces))
         results.append((faces, out))
     launches = {"warp_rois": warp_kernel.warp_rois.launches,
-                "gallery_top1": match_kernel.gallery_top1.launches}
+                "gallery_top1": match_kernel.gallery_top1.launches,
+                "epilogue": epilogue_kernel.epilogue.launches}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     say(f"[path] valid slots per request {faces_per_request} of {FRAMES * cfg.engine.max_faces}")
     say(f"[path] gallery capacity {snap.device_matrix.shape[0]} n_valid {snap.size} "
@@ -3811,6 +3946,9 @@ def main() -> int:
     check(snap.device_matrix.shape[0] == CAPACITY and snap.size == CAPACITY_ROWS, "gallery shape")
     check(all(n > 0 for n in faces_per_request), "a request found no valid slot")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    # serve_forward's epilogues: the stem's and three a block, in every r50 forward
+    check(launches["epilogue"] % (1 + 3 * engine.embedder.num_blocks) == 0,
+          f"epilogue launches {launches['epilogue']} are not whole r50 forwards")
     for fl in sum((f for f, _ in results), []):
         for face in fl:
             check(np.isfinite(face.bbox).all() and np.isfinite(face.kps).all(), "non-finite box")
@@ -4999,6 +5137,8 @@ def main() -> int:
     stem_lib_ms = time_ms(torch, library_stem, 20)
     stem_bnd, stem_by = stem_bound(x48, sw, "bfloat16")
 
+    ep = epilogue_phase(torch, card)
+
     def k3_entry(name, size, n_launches, err, t, **extra):
         return {"name": name, "route": "cuda", "source": WARP_SRC,
                 "replaces": "facerecognition_infrenceengine_tpu/ops/warp_pallas.py:115",
@@ -5039,6 +5179,9 @@ def main() -> int:
          "ms": stem_times["bfloat16"], "kernel_device_ms": stem_dev["bfloat16"],
          "plain_ms": stem_plain_ms, "bound_ms": stem_bnd,
          "bound_by": stem_by, "library_ms": stem_lib_ms},
+        {"name": "epilogue", "route": "cuda", "source": EPILOGUE_SRC, "replaces": None,
+         "launches": launches["epilogue"], "max_abs_err": 0.0, "B": EPILOGUE_B, **ep["bn_prelu"],
+         "bn_bn_res": ep["bn_bn_res"]},
     ]
     variants = []
     for (dtype_name, bq), ms in times.items():

@@ -406,11 +406,14 @@ class FaceEngine:
     def _apply_embedder(self, x: torch.Tensor) -> torch.Tensor:
         """Every embedding program's embedder: the int8 twin when the engine
         holds int8 weights (the scales dict read once: a recalibration
-        replaces it whole), else the module."""
+        replaces it whole); an IResNet through ``arcface.serve_forward``
+        (its epilogues in place); else the module."""
         if "int8" in self.rec_variables:
             return quant.apply_int8(self.embedder, self.rec_variables["int8"],
                                     self._embed_scales, x, depths=self._quant_depths,
                                     dtype=self.dtype)
+        if isinstance(self.embedder, arcface.IResNet):
+            return arcface.serve_forward(self.embedder, x)
         return self.embedder(x)
 
     def _embed_impl(self, frames_u8, frame_idx, kps):

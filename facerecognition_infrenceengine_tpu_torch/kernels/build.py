@@ -54,6 +54,9 @@ SIGNATURES = {
     "fre_gallery_top1_int8_rows_per_block": [],
     "fre_fused_stem": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "fre_fused_stem_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, out, r, alpha, is_bf16, rows, c, BN_a (w, b, mean, var, eps), BN_b (same), stream
+    "fre_epilogue": [_P, _P, _P, _P, _I, ctypes.c_longlong, _I, *[_P] * 4, ctypes.c_float,
+                     *[_P] * 4, ctypes.c_float, _P],
 }
 
 # Host codec entry -> (restype, argument types).

@@ -14,6 +14,12 @@ each BatchNorm normalises in float32 and rounds its output to it.  The
 serving engine instead casts a float32-built module with
 ``layers.cast_keep_bn_f32``; the forward then computes in the cast dtype.
 
+``serve_forward`` is the serving engine's forward of the same module: the
+same weights and the same values, with every BatchNorm, PReLU and residual
+add written in place by ``ops/epilogue_kernel.py``.  Training, ONNX export
+and the int8 twin keep ``IResNet.forward``, whose out-of-place graph they
+need.
+
 Preprocessing (insightface): RGB, (x - 127.5) / 127.5.  Embeddings are not
 normalized here; callers L2-normalize.
 """
@@ -25,6 +31,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.epilogue_kernel import epilogue
 from .layers import BN_EPS, Conv2d, Linear, PReLU, compute_dtype
 
 
@@ -90,6 +97,39 @@ class IResNet(nn.Module):
         x = self.BatchNorm_1(x)
         x = self.Dense_0(torch.flatten(x, 1))
         return self.BatchNorm_2(x).float()
+
+
+@torch.inference_mode()
+def serve_forward(model: IResNet, x: torch.Tensor) -> torch.Tensor:
+    """``model(x)``, value for value, with the per-channel epilogues run in
+    place (``ops/epilogue_kernel.epilogue``): the convs allocate the only
+    activations.  A stage-entry block applies its BatchNorm_0 to its input
+    in place once the shortcut conv has read it, so at 112x112 two full
+    activations are live (and the shortcut's stride-2 output), not three;
+    an identity block keeps its input for the residual and writes its
+    BatchNorm_0 into a new tensor.  Eval statistics; the module's own
+    parameters and buffers."""
+    if model.training:
+        raise ValueError("serve_forward runs a module in eval mode")
+    x = x.permute(0, 3, 1, 2).to(compute_dtype(model, model.Conv_0))
+    x = epilogue(model.Conv_0(x), model.BatchNorm_0, prelu=model.PReLU_0.weight)
+    for i in range(model.num_blocks):
+        block = getattr(model, f"IBasicBlock_{i}")
+        if block.shortcut:
+            sc = block.Conv_2(x)
+            c = block.Conv_0(epilogue(x, block.BatchNorm_0))
+        else:
+            sc = x
+            c = block.Conv_0(epilogue(x, block.BatchNorm_0, out=torch.empty_like(x)))
+        del x
+        o = block.Conv_1(epilogue(c, block.BatchNorm_1, prelu=block.PReLU_0.weight))
+        del c
+        x = epilogue(o, block.BatchNorm_2, res=sc,
+                     res_bn=block.BatchNorm_3 if block.shortcut else None)
+        del o, sc
+    x = model.BatchNorm_1(x)
+    x = model.Dense_0(torch.flatten(x, 1))
+    return model.BatchNorm_2(x).float()
 
 
 def layer_execution_order(depths: Sequence[int] = (3, 4, 14, 3)) -> list:

@@ -934,3 +934,133 @@ def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
           f"gradient {float((g_gpu - g_cpu).norm() / g_cpu.norm()):.2e}")
     assert abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
     assert (g_gpu - g_cpu).norm() <= 5e-2 * g_cpu.norm()
+
+
+# ------------------------------------------------------------ epilogue
+# IResNet-50's epilogue shapes (C, side): the stem and stage 1's entry at
+# 112, then each stage's entry width at the side it reads and the side it
+# writes
+EPILOGUE_SHAPES = [(64, 112), (64, 56), (128, 56), (128, 28), (256, 28), (256, 14), (512, 14),
+                   (512, 7)]
+_INT = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
+def _bits_equal(a, b):
+    return a.dtype == b.dtype and torch.equal(a.view(_INT[a.dtype]), b.view(_INT[b.dtype]))
+
+
+def _random_bn(c, device, seed):
+    rng = np.random.default_rng(seed)
+    bn = torch.nn.BatchNorm2d(c).eval()
+    with torch.no_grad():
+        for t, scale in ((bn.weight, 1.0), (bn.bias, 1.0), (bn.running_mean, 2.0)):
+            t.copy_(torch.from_numpy(rng.normal(0, scale, c).astype(np.float32)))
+        bn.running_var.copy_(torch.from_numpy(np.exp(rng.normal(0, 1, c)).astype(np.float32)))
+    return bn.to(device)
+
+
+@pytest.mark.parametrize("b", [1, 1024])
+@pytest.mark.parametrize("c,side", EPILOGUE_SHAPES)
+def test_epilogue_kernel_bit_equal_to_plain(cuda, c, side, b):
+    """The epilogue kernel against its plain version (ATen's BatchNorm, add
+    and PReLU) bit for bit, in bf16 and f32, in place and into a second
+    tensor: BN alone, BN + PReLU, BN + r, BN + BN(r), BN + BN(r) + PReLU.
+    In f32 the plain version runs with cuDNN off (ATen's own BatchNorm
+    kernel; cuDNN's f32 BatchNorm rounds otherwise, see
+    test_serve_forward_in_f32_on_the_card)."""
+    from facerecognition_infrenceengine_tpu_torch.ops import epilogue_kernel
+
+    bn_a, bn_b = _random_bn(c, cuda, 1), _random_bn(c, cuda, 2)
+    gen = torch.Generator(cuda).manual_seed(c * side + b)
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (b, c, side, side)
+        x = (3 * torch.randn(shape, generator=gen, device=cuda)).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        r = (3 * torch.randn(shape, generator=gen, device=cuda)).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        slope = torch.randn(c, generator=gen, device=cuda) * 0.25
+        for kw in ({}, {"prelu": slope}, {"res": r}, {"res": r, "res_bn": bn_b},
+                   {"res": r, "res_bn": bn_b, "prelu": slope}):
+            with torch.inference_mode(), torch.backends.cudnn.flags(enabled=False):
+                want = epilogue_kernel.epilogue_plain(x, bn_a, out=torch.empty_like(x), **kw)
+            with torch.inference_mode():
+                before = epilogue_kernel.epilogue.launches
+                got = epilogue_kernel.epilogue(x, bn_a, out=torch.empty_like(x), **kw)
+                inplace = x.clone()
+                same = epilogue_kernel.epilogue(inplace, bn_a, **kw)
+            torch.cuda.synchronize()
+            assert epilogue_kernel.epilogue.launches == before + 2
+            assert same.data_ptr() == inplace.data_ptr()
+            assert _bits_equal(got, want), (dtype, sorted(kw), int((got != want).sum()))
+            assert _bits_equal(same, want), (dtype, sorted(kw))
+
+
+def _r50(device, dtype, seed=1):
+    """IResNet-50's synthetic weights with drawn BatchNorm statistics."""
+    from test_torch_epilogue import random_bn_stats
+
+    from facerecognition_infrenceengine_tpu_torch.models import arcface, weights
+    from facerecognition_infrenceengine_tpu_torch.models.layers import cast_keep_bn_f32
+
+    model = random_bn_stats(weights.load_or_init("arcface_r50", arcface.iresnet50(), seed))
+    return cast_keep_bn_f32(model, device, dtype, torch.channels_last)
+
+
+def test_serve_forward_at_1024_crops_equals_the_module_in_two_slabs(cuda):
+    """IResNet-50 in bf16 (the engine's cast) on 1,024 crops: the serving
+    forward's embeddings equal the module forward's bit for bit, and its
+    peak over the call holds the 112x112 stage's two 64-channel slabs, the
+    shortcut's quarter slab and the input (+10%), where the module forward
+    needs three slabs."""
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+
+    model = _r50(cuda, torch.bfloat16)
+    b = 1024
+    gen = torch.Generator(cuda).manual_seed(5)
+    crops = torch.randint(0, 256, (b, 112, 112, 3), generator=gen, device=cuda,
+                          dtype=torch.uint8)
+    x = arcface.preprocess(crops)
+    slab = b * 64 * 112 * 112 * 2
+    peaks = {}
+    with torch.inference_mode():
+        for name, fn in (("module", model), ("serve", lambda t: arcface.serve_forward(model, t)),
+                         ("module_again", model)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            peaks[name] = (fn(x), torch.cuda.max_memory_allocated() - base + x.nbytes)
+    (want, p_module), (got, p_serve), (again, _) = peaks.values()
+    print(f"r50 bf16 B={b}: peak over the call, input included: module {p_module / 2**30:.4f} "
+          f"GiB, serve {p_serve / 2**30:.4f} GiB; a slab {slab / 2**30:.4f} GiB")
+    assert _bits_equal(want, again)
+    assert _bits_equal(got, want), int((got != want).sum())
+    assert p_module >= 3 * slab
+    assert p_serve <= 1.1 * (2.25 * slab + x.nbytes)
+
+
+def test_serve_forward_in_f32_on_the_card(cuda):
+    """IResNet-50 in f32 on 64 crops: the serving forward against the
+    module forward, whose f32 BatchNorm is cuDNN's (the kernel follows
+    ATen's own, which rounds otherwise in ~half the elements, by an ulp);
+    the widest gap is printed and held to 1 - cos <= 1e-9 (measured on an
+    H100: 1 - cos 1.6e-11, 112 ulps of an embedding's largest element)."""
+    from facerecognition_infrenceengine_tpu_torch.core.device import resolve_device
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+
+    resolve_device(cuda)
+    model = _r50(cuda, torch.float32)
+    gen = torch.Generator(cuda).manual_seed(6)
+    x = arcface.preprocess(torch.randint(0, 256, (64, 112, 112, 3), generator=gen, device=cuda,
+                                         dtype=torch.uint8))
+    with torch.inference_mode():
+        want, got = model(x), arcface.serve_forward(model, x)
+    # the gap in ulps of each embedding's largest element (elements near 0
+    # differ in sign, where a count of ulps says nothing)
+    top = want.abs().amax(1, keepdim=True)
+    ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+    ulps = float(((got - want).abs() / ulp).max())
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=1)
+    print(f"r50 f32 B=64, serve against module: equal {_bits_equal(got, want)}, widest gap "
+          f"{ulps:.1f} ulp of the row's largest element, 1 - cos {float((1 - cos).max()):.3e}")
+    assert float((1 - cos).max()) <= 1e-9
