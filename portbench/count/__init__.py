@@ -3,9 +3,13 @@ shapes and the cell's sizes, never from the port's code: a roofline then
 reads the same work whatever implements it.
 
 Peaks are NVIDIA's data-sheet figures for one H100 SXM (dense, at its
-700 W limit).  A model's operations are its convolutions' and dense layers'
-multiply-adds x 2, counted by hooks on the reference's module of the
-configuration's widths, built on the meta device (no weights, no compute).
+700 W limit).  A model's operations are the multiply-adds x 2 of every
+matmul its forward runs: convolutions, dense layers and batched matmuls
+(``mm``, ``addmm``, ``bmm``, ``baddbmm``, ``scaled_dot_product_attention``),
+as ``torch.utils.flop_counter.FlopCounterMode`` counts them over one forward
+of the reference's module of the configuration's widths, built and run on
+the meta device (no weights, no compute).  Normalisations, activations and
+adds are not counted.
 """
 
 from __future__ import annotations
@@ -13,7 +17,9 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
+from ..reference import arcface
 from ..reference.pipeline import detector_factory, embedder_factory, head_factory
 
 HBM_BYTES_PER_S = 3.35e12
@@ -28,27 +34,13 @@ def bound(bytes_moved: float, flops: float, dtype: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def model_flops(make, input_nhwc: tuple, channels_first: bool = False) -> float:
+def model_flops(make, input_nhwc: tuple) -> float:
     """Multiply-adds x 2 of one forward of ``make()`` on one input."""
-    flops = 0.0
-
-    def hook(mod, _inp, out):
-        nonlocal flops
-        if isinstance(mod, torch.nn.Conv2d):
-            k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels // mod.groups
-            flops += 2.0 * k * out.numel() / out.shape[0]
-        elif isinstance(mod, torch.nn.Linear):
-            flops += 2.0 * mod.in_features * mod.out_features
-
     with torch.device("meta"):
         model = make().eval()
-        hooks = [m.register_forward_hook(hook) for m in model.modules()
-                 if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
-        with torch.no_grad():
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
             model(torch.zeros((1,) + tuple(input_nhwc)))
-    for h in hooks:
-        h.remove()
-    return flops
+    return float(counter.get_total_flops())
 
 
 def frame_flops(config: dict) -> dict:
@@ -67,6 +59,51 @@ def frame_flops(config: dict) -> dict:
                                                (head["input"], head["input"], 3))
                                    for name, head in config["attribute_heads"].items())
     return out
+
+
+def epilogue_passes(rec: dict, side: int) -> list:
+    """[((C, H, W), tensors)] of each per-channel epilogue pass IResNet's
+    serving forward (the port's ``arcface.serve_forward``) makes over one
+    face, from the BatchNorm output shapes of the reference module at the
+    widths ``rec`` states, on a ``side`` x ``side`` crop.  A pass reads and
+    writes one activation (2 tensors): the stem's BatchNorm + PReLU, each
+    block's BatchNorm_0, and its BatchNorm_1 + PReLU; a block's BatchNorm_2
+    also reads the residual (3 tensors), its shortcut's BatchNorm_3 folded
+    into the same pass.  The last BatchNorm is not an epilogue pass.  Empty
+    for an embedder that is not an IResNet."""
+    with torch.device("meta"):
+        model = embedder_factory(rec)().eval()
+    if not isinstance(model, arcface.IResNet):
+        return []
+    shapes = {}
+    hooks = [m.register_forward_hook(
+        lambda _m, _i, out, name=name: shapes.__setitem__(name, tuple(out.shape[1:])))
+        for name, m in model.named_modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    with torch.no_grad():
+        model(torch.zeros((1, side, side, 3), device="meta"))
+    for h in hooks:
+        h.remove()
+    passes = [(shapes["BatchNorm_0"], 2)]
+    for i in range(model.num_blocks):
+        block = f"IBasicBlock_{i}."
+        passes += [(shapes[block + "BatchNorm_0"], 2), (shapes[block + "BatchNorm_1"], 2),
+                   (shapes[block + "BatchNorm_2"], 3)]
+    return passes
+
+
+def epilogue_pass_bytes(faces: int, chw: tuple, tensors: int, dtype: str) -> float:
+    """One epilogue pass over ``faces`` activations of shape ``chw`` in
+    ``dtype``: each of its ``tensors`` read or written once."""
+    return float(faces * math.prod(chw) * tensors * getattr(torch, dtype).itemsize)
+
+
+def epilogue_bytes(config: dict, faces: int) -> float:
+    """The bytes the embedder's epilogue passes must move over ``faces``
+    faces in the configuration's dtype (0 for an embedder that is not an
+    IResNet)."""
+    return float(sum(epilogue_pass_bytes(faces, chw, tensors, config["dtype"])
+                     for chw, tensors in epilogue_passes(config["recognizer"],
+                                                         config["embed_size"])))
 
 
 def warp_bytes(faces: int, crop_sides) -> float:

@@ -27,7 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import arcface, codec, genderage, landmark106, mobilefacenet, scrfd, warp, yuv
+from .. import spec
+from . import arcface, codec, genderage, landmark106, scrfd, warp, yuv
 from .align import ARCFACE_DST
 from .anchors import all_anchor_centers
 from .boxes import distance2bbox, distance2kps
@@ -76,28 +77,14 @@ def _module(make, flat: dict, device) -> torch.nn.Module:
 
 
 def embedder_factory(rec: dict):
-    """The embedder at the widths the configuration's ``recognizer`` states:
-    IResNet's depths, widths and embedding; MobileFaceNet's stages and
-    embedding, its stem and separable tail (fixed in the frozen module)
-    checked against the file.  The port loads the weights drawn for this
-    module, so a stated width that is not the port's fails the run."""
-    arch = rec["arch"]
-    if arch in ("r50", "r18"):
-        return lambda: arcface.IResNet(depths=tuple(rec["depths"]), widths=tuple(rec["widths"]),
-                                       embed_dim=rec["embed_dim"])
-    if arch != "mobilefacenet":
-        raise ValueError(f"no reference embedder for {arch!r}")
-
-    def make():
-        model = mobilefacenet.MobileFaceNet(embed_dim=rec["embed_dim"],
-                                            stages=tuple(tuple(s) for s in rec["stages"]))
-        built = (model.ConvBlock_0.Conv_0.out_channels, model.ConvBlock_2.Conv_0.out_channels)
-        if built != (rec["stem_width"], rec["sep_width"]):
-            raise ValueError(f"MobileFaceNet stem and tail widths {built}, the file states "
-                             f"{(rec['stem_width'], rec['sep_width'])}")
-        return model
-
-    return make
+    """The embedder at the widths the configuration's ``recognizer``
+    states; ``build`` raises ``ValueError`` where the file states a width
+    that its module fixes.  The port loads the weights drawn for this
+    module, so a stated width that is not the port's fails the run.  The
+    module is ``reference/embedders/<arch>.py``'s (found by
+    ``spec.embedder``; ``ValueError`` where there is none)."""
+    mod = spec.embedder(rec["arch"])
+    return lambda: mod.build(rec)
 
 
 HEADS = {"genderage": (genderage, genderage.GenderAge, 7),

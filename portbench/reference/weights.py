@@ -1,6 +1,9 @@
 # Frozen excerpt of facerecognition_infrenceengine_tpu_torch/models/weights.py at
 # commit 5fe48e2: the flax leaf layout of a module, the flax -> torch leaf
-# conversion and the deterministic synthetic leaves; do not edit.
+# conversion and the deterministic synthetic leaves; do not edit, except for
+# the ``nn.LayerNorm`` branch of ``flax_layout``, which the port's
+# models/weights.py does not have yet (no model of the port builds a
+# LayerNorm): the change that first builds one there adds it there too.
 """Flax-tree weights for the reference's modules (frozen excerpt)."""
 
 from __future__ import annotations
@@ -101,6 +104,9 @@ def flax_layout(model: nn.Module) -> list:
                     "running_mean": f"batch_stats{SEP}{base}{SEP}mean",
                     "running_var": f"batch_stats{SEP}{base}{SEP}var"}[name]
             out.append((key, flax, shape, _identity))
+        elif isinstance(mod, nn.LayerNorm):  # flax's nn.LayerNorm: scale, bias
+            out.append((key, prefix + {"weight": "scale", "bias": "bias"}[name], shape,
+                        _identity))
         elif isinstance(mod, nn.PReLU):
             out.append((key, prefix + "alpha", shape, _identity))
         elif isinstance(mod, nn.Linear):

@@ -7,11 +7,15 @@ file of its own under ``portbench/``:
   frames, transport, gallery, the correctness sample);
 - ``limits/<workload>.json``: each compared number's limit in that cell;
 - ``metrics/<metric>.py``: one per-layer metric's reader, a ``read(run)``
-  that returns the value or None where it finds nothing to read.
+  that returns the value or None where it finds nothing to read;
+- ``reference/embedders/<arch>.py``: the plain reference of an embedder
+  architecture a configuration's ``recognizer`` names, a ``build(rec)``
+  that returns the module at the widths ``rec`` states.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -50,10 +54,26 @@ def cell(name: str, root: str = ROOT) -> dict:
     }
 
 
-def reader(metric: str, root: str = ROOT):
-    """The module ``metrics/<metric>.py`` (its name may hold dots)."""
-    path = os.path.join(root, "portbench", "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{metric}", path)
+def _load(name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(metric: str, root: str = ROOT):
+    """The module ``metrics/<metric>.py`` (its name may hold dots)."""
+    return _load(f"portbench_metric_{metric}",
+                 os.path.join(root, "portbench", "metrics", f"{metric}.py"))
+
+
+@functools.lru_cache(maxsize=None)
+def embedder(arch: str, root: str = ROOT):
+    """The module ``reference/embedders/<arch>.py``, loaded once a root.  It
+    is loaded as a module of ``portbench.reference.embedders``, so its
+    relative imports reach the reference's other files.  ``ValueError``
+    where ``arch`` is not a bare name or has no file."""
+    path = os.path.join(root, "portbench", "reference", "embedders", f"{arch}.py")
+    if not arch.isidentifier() or not os.path.isfile(path):
+        raise ValueError(f"no reference embedder for {arch!r}")
+    return _load(f"portbench.reference.embedders.{arch}", path)
