@@ -4,8 +4,9 @@ aligned crops -> L2-normalized embeddings.
 The torch form of ``facerecognition_infrenceengine_tpu/engine/pipeline.py``:
 SCRFD forward -> sigmoid -> decode -> masked top-k -> greedy NMS into
 ``max_faces`` fixed slots, then Umeyama -> pyramid atlas -> K3 warp (each
-face's ROI window read straight from the atlas) -> IResNet or MobileFaceNet
-(``rec_arch``) -> L2 normalize, with every shape static per batch size.
+face's ROI window read straight from the atlas) -> IResNet, MobileFaceNet
+or ViT-L (``rec_arch``) -> L2 normalize, with every shape static per batch
+size.
 ``detect_align_embed_flat`` packs the outputs into one [B, F, 528] tensor
 (boxes 4 | score 1 | kps 10 | valid 1 | emb 512).
 
@@ -41,10 +42,11 @@ the exact ONNX graphs when converted ones sit in the weights dir
 Spans (``core/metrics``): each public entry is an ``engine.<module>`` span
 (``detect``, ``embed``, ``attributes``, ``fused``) and, at the first call of
 an entry at an input shape in the process, an ``engine.first_call`` timer
-inside it: cuDNN's plans, the kernels' first launches.  Each host-to-device
-copy is an ``engine.upload`` span (its ``bytes``), each blocking download
-an ``engine.wait`` span (the wait for the card and the copy), and the
-constructor the ``engine.init`` timer.
+inside it: cuDNN's plans, the kernels' first launches.  Each embedder call
+is an ``engine.embedder`` span (its ``arch`` and ``crops``) inside them,
+each host-to-device copy an ``engine.upload`` span (its ``bytes``), each
+blocking download an ``engine.wait`` span (the wait for the card and the
+copy), and the constructor the ``engine.init`` timer.
 
 Convolutions and the embedder's dense layer run through PyTorch (cuDNN /
 cuBLAS on the card), as the reference left them to XLA; the stem (K4), the
@@ -63,12 +65,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from .. import native
 from ..core import metrics
 from ..core.config import EngineConfig, get_config
 from ..core.device import resolve_device
-from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, quant, scrfd
+from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, quant, scrfd, vit
 from ..models.layers import cast_keep_bn_f32
 from ..models.onnx_exec import OnnxRunner
 from ..models.packed_stem import packed_stem_forward, packed_stem_forward_s2d4
@@ -101,7 +104,16 @@ def yuv_black(shape: tuple, device) -> torch.Tensor:
 
 # rec_arch -> embedder; every one reads arcface.preprocess'd 112x112 crops
 _EMBEDDERS = {"r50": arcface.iresnet50, "r18": arcface.iresnet18,
-              "mobilefacenet": mobilefacenet.mobilefacenet}
+              "mobilefacenet": mobilefacenet.mobilefacenet, "vit_l": vit.vit_l}
+
+# The one SDPA backend the ViT's attention runs on the card, by the
+# engine's dtype, so that the device trace names one kernel: FlashAttention-2
+# (``pytorch_flash::flash_fwd_kernel``) in bf16, the memory-efficient kernel
+# in float32, which FlashAttention does not take.  The backend flags are
+# process-wide, so one lock serializes the forwards that set them.
+_ATTENTION = {torch.bfloat16: SDPBackend.FLASH_ATTENTION,
+              torch.float32: SDPBackend.EFFICIENT_ATTENTION}
+_attention_lock = threading.Lock()
 
 
 def _stride_rows(height: int, width: int) -> np.ndarray:
@@ -278,6 +290,8 @@ class FaceEngine:
         self.dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
         if rec_arch not in _EMBEDDERS:
             raise ValueError(f"rec_arch {rec_arch!r}: one of {sorted(_EMBEDDERS)}")
+        if self.cfg.embed_int8 and rec_arch == "vit_l":
+            raise ValueError("embed_int8: the int8 embedder is IResNet's; there is no int8 ViT")
         self.rec_arch = rec_arch
         h, w = self.cfg.det_size
         detector = _from_variables(f"scrfd_{det_arch}", scrfd.SCRFD(scrfd.CONFIGS[det_arch]),
@@ -404,17 +418,23 @@ class FaceEngine:
         return ob, osc, okps, valid
 
     def _apply_embedder(self, x: torch.Tensor) -> torch.Tensor:
-        """Every embedding program's embedder: the int8 twin when the engine
-        holds int8 weights (the scales dict read once: a recalibration
-        replaces it whole); an IResNet through ``arcface.serve_forward``
-        (its epilogues in place); else the module."""
-        if "int8" in self.rec_variables:
-            return quant.apply_int8(self.embedder, self.rec_variables["int8"],
-                                    self._embed_scales, x, depths=self._quant_depths,
-                                    dtype=self.dtype)
-        if isinstance(self.embedder, arcface.IResNet):
-            return arcface.serve_forward(self.embedder, x)
-        return self.embedder(x)
+        """Every embedding program's embedder, as an ``engine.embedder``
+        span (``arch``, ``crops``): the int8 twin when the engine holds int8
+        weights (the scales dict read once: a recalibration replaces it
+        whole); an IResNet through ``arcface.serve_forward`` (its epilogues
+        in place); the ViT with its attention pinned to one backend on the
+        card; else the module."""
+        with metrics.span("engine.embedder", arch=self.rec_arch, crops=int(x.shape[0])):
+            if "int8" in self.rec_variables:
+                return quant.apply_int8(self.embedder, self.rec_variables["int8"],
+                                        self._embed_scales, x, depths=self._quant_depths,
+                                        dtype=self.dtype)
+            if isinstance(self.embedder, arcface.IResNet):
+                return arcface.serve_forward(self.embedder, x)
+            if isinstance(self.embedder, vit.VisionTransformer) and x.is_cuda:
+                with _attention_lock, sdpa_kernel(_ATTENTION[self.dtype]):
+                    return self.embedder(x)
+            return self.embedder(x)
 
     def _embed_impl(self, frames_u8, frame_idx, kps):
         crops = warp_faces_two_pass(frames_u8, frame_idx, kps, self.cfg.embed_size,

@@ -63,7 +63,14 @@ def cast_keep_bn_f32(module: nn.Module, device, dtype: torch.dtype,
     statistics, computes in f32 and rounds once to the engine dtype;
     ``F.batch_norm`` with a bf16 input and f32 parameters does the same in
     one pass.  Casting the BN buffers to bf16 first would round the
-    statistics before they are used.  Returns ``module``."""
+    statistics before they are used.
+
+    LayerNorm is cast with the rest: ATen's CUDA layer norm reads its
+    weight and bias in the input's dtype (its statistics are float32
+    whatever the dtype), so float32 parameters would take a float32 copy of
+    every activation it normalises.  ``memory_format`` reaches only 4-D
+    tensors: a ViT's patch conv, not its token activations.  Returns
+    ``module``."""
     module.to(device, memory_format=memory_format)
     for sub in module.modules():
         if isinstance(sub, nn.modules.batchnorm._BatchNorm):

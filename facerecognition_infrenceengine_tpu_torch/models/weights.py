@@ -158,6 +158,9 @@ def flax_layout(model: nn.Module) -> list:
                     "running_mean": f"batch_stats{SEP}{base}{SEP}mean",
                     "running_var": f"batch_stats{SEP}{base}{SEP}var"}[name]
             out.append((key, flax, shape, _identity))
+        elif isinstance(mod, nn.LayerNorm):  # flax's nn.LayerNorm: scale, bias
+            out.append((key, prefix + {"weight": "scale", "bias": "bias"}[name], shape,
+                        _identity))
         elif isinstance(mod, nn.PReLU):
             out.append((key, prefix + "alpha", shape, _identity))
         elif isinstance(mod, nn.Linear):
@@ -167,7 +170,7 @@ def flax_layout(model: nn.Module) -> list:
                             _flat_dense_to_torch(chw) if chw else _dense_to_torch))
             else:
                 out.append((key, prefix + name, shape, _identity))
-        else:  # a bare parameter (SCRFD's per-level bbox scales)
+        else:  # a bare parameter (SCRFD's per-level bbox scales, the ViT's pos_embed)
             out.append((key, prefix + name, shape, _identity))
     return out
 

@@ -5,8 +5,9 @@ The torch form of ``facerecognition_infrenceengine_tpu/models/zoo.py``:
 ``get_batch(frames)`` return ``Face`` objects with ``bbox``, ``det_score``,
 ``kps``, ``normed_embedding`` and, with the genderage and landmark_2d_106
 modules (on by default, as in buffalo_l), ``gender``, ``age`` and
-``landmark_2d_106``.  The pack name selects the recognizer: ``"buffalo_l"``
-IResNet-50, ``"mobile_facenet_v1"`` MobileFaceNet.
+``landmark_2d_106``.  The pack name selects the recognizer
+(``PACK_RECOGNIZERS``): ``"buffalo_l"`` IResNet-50, ``"mobile_facenet_v1"``
+MobileFaceNet, ``"vit_l"`` arcface_torch's ViT-L; any other name IResNet-50.
 
 Frames of any size are letterboxed onto the detector canvas by the host
 codec (``native.letterbox``).  When every frame of a batch fits the canvas
@@ -74,6 +75,10 @@ def letterbox(frame: np.ndarray, canvas_hw: tuple) -> tuple:
     return native.letterbox(np.ascontiguousarray(frame), *canvas_hw)
 
 
+# pack name -> the FaceEngine recognizer (``rec_arch``) it serves
+PACK_RECOGNIZERS = {"buffalo_l": "r50", "mobile_facenet_v1": "mobilefacenet", "vit_l": "vit_l"}
+
+
 class FaceAnalysis:
     """insightface-style facade; runs on ``device`` (default ``cuda``)."""
 
@@ -99,9 +104,7 @@ class FaceAnalysis:
 
     def _ensure_engine(self):
         if self._engine is None:
-            # the pack name selects the recognizer: buffalo_l -> IResNet-50,
-            # mobile_facenet_v1 -> MobileFaceNet
-            rec_arch = "mobilefacenet" if "facenet" in self.name else "r50"
+            rec_arch = PACK_RECOGNIZERS.get(self.name, "r50")
             self._engine = FaceEngine(self.cfg, rec_arch=rec_arch, device=self.device)
         # the engine's resolved device, which the serving threads bind to
         self.device = self._engine.device

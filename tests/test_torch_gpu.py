@@ -1064,3 +1064,44 @@ def test_serve_forward_in_f32_on_the_card(cuda):
     print(f"r50 f32 B=64, serve against module: equal {_bits_equal(got, want)}, widest gap "
           f"{ulps:.1f} ulp of the row's largest element, 1 - cos {float((1 - cos).max()):.3e}")
     assert float((1 - cos).max()) <= 1e-9
+
+
+def test_vit_l_at_published_widths_against_the_f32_reference(cuda):
+    """ViT-L (``vit_l``) in bf16 through the engine's embedder call on 256
+    structured crops, weights drawn as the benchmark draws them: within the
+    ``vit_l.crowd`` cell's ``embed.cos_gap`` of the float32 reference (TF32
+    off), and its attention run by the pinned FlashAttention-2 kernel."""
+    import json
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine import pipeline
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+    from portbench import data, spec
+    from portbench.reference.pipeline import _module, embedder_factory
+
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.join(spec.ROOT, "portbench")
+    with open(os.path.join(root, "configs", "vit_l.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(root, "limits", "vit_l.crowd.json")) as f:
+        limit = json.load(f)["embed.cos_gap"]
+    rec = data.embedder_weights(config, 2**33 + 21, cuda)
+    engine = pipeline.FaceEngine(EngineConfig(dtype="bfloat16"), rec_variables=data.nested(rec),
+                                 rec_arch="vit_l", device=cuda)
+    x = arcface.preprocess(torch.from_numpy(pipeline._calibration_crops(256, 112)).to(cuda))
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = engine._apply_embedder(x)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    del engine
+    ref = _module(embedder_factory(config["recognizer"]), rec, cuda)
+    with torch.inference_mode():
+        want = ref(x)
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=1)
+    gap = float((1 - cos).max())
+    print(f"vit_l bf16 B=256 against the f32 reference: 1 - cos {gap:.3e} (limit {limit})")
+    assert any("flash_fwd_kernel" in n for n in names), names
+    assert gap <= limit
