@@ -157,6 +157,22 @@ Phases, one flushed line each:
    the bytes read and written (`epilogue_phase`, also run alone:
    ``python3 -c "import chip_smoke; chip_smoke.epilogue_main()"``).  The
    kernels row's `launches` are the [path] requests' own.
+   The ViT's residual add + LayerNorm kernel (csrc/layernorm.cu) at ViT-L's
+   served residual stream (1,024 crops x 144 tokens x 768): in bf16 and f32
+   both forms' stream bit-equal to ATen's add and their LayerNorm within a
+   rounding of F.layer_norm (one bf16 ulp; f32 2e-6 at unit scale); then the
+   fused form (x += a, the LayerNorm into a's buffer) and the plain
+   LayerNorm form timed in bf16 against their bytes, the plain version and
+   ATen's add + layer_norm (`layernorm_phase`, also run alone:
+   ``python3 -c "import chip_smoke; chip_smoke.layernorm_main()"``).
+   [vit]: FaceEngine(rec_arch="vit_l") in bf16 at published widths embeds
+   a vit_l.crowd batch (1,024 aligned crops) through the engine's embedder
+   path (vit.serve_forward) VIT_FORWARDS times; the kernel's launch count,
+   zeroed just before, must read 49 a forward (48 fused, block 0's norm1
+   plain), and the embeddings are held to the module forward on the same
+   crops under 1 - cos VIT_GAP (`vit_phase`, also run alone:
+   ``python3 -c "import chip_smoke; chip_smoke.vit_main()"``).  The
+   kernels row's `launches` are the [vit] forwards' own.
 10b. [mesh] (after the gallery phase): the sharded gallery and
    make_sharded_fused over a mesh of the distinct cards, or of cuda:0 named
    8 times (data 2 x gallery 4) on one card.  The gallery phase's 50,000
@@ -313,6 +329,11 @@ MATCH_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match.cu"
 MATCH_INT8_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/match_int8.cu"
 STEM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/stem.cu"
 EPILOGUE_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/epilogue.cu"
+LAYERNORM_SRC = "facerecognition_infrenceengine_tpu_torch/csrc/layernorm.cu"
+# ViT-L's residual stream at a vit_l.crowd batch: 1,024 crops of 144 tokens, 768 wide
+LAYERNORM_CROPS, VIT_TOKENS, VIT_WIDTH = 1024, 144, 768
+VIT_FORWARDS = 2     # the [vit] phase's served embeds of a vit_l.crowd batch
+VIT_GAP = 1e-4       # 1 - cos of the served ViT-L against the module forward, bf16
 EPILOGUE_B = 1024               # IResNet-50's crops a buffalo_l.crowd batch (32 x 32)
 # IResNet-50's epilogue shapes (channels, side): the stem and stage 1's
 # entry at 112, then each stage's entry width at the side it reads and the
@@ -321,7 +342,7 @@ EPILOGUE_SHAPES = ((64, 112), (64, 56), (128, 56), (128, 28), (256, 28), (256, 1
                    (512, 7))
 # the kernels of csrc/ as torch.profiler names them
 HAND_KERNELS = ("warp_windows_kernel", "top1_f32_kernel", "top1_bf16_kernel", "top1_int8_kernel",
-                "fused_stem", "epilogue_kernel")
+                "fused_stem", "epilogue_kernel", "residual_layernorm_kernel")
 INT8_MARGIN = 5e-3  # f32 top-1 lead over the runner-up above which int8 must agree
 # the [int8] phase: the opt-in scale modes (models/quant.py, models/packed_stem.py)
 INT8_VARIANTS = (("a", dict(embed_int8=True)), ("b", dict(det_int8=True)),
@@ -615,6 +636,190 @@ def epilogue_main() -> int:
     card = card_line()
     torch.backends.cudnn.allow_tf32 = False
     say(json.dumps({"epilogue": epilogue_phase(torch, card)}))
+    return 0
+
+
+def layernorm_phase(torch, card: str) -> dict:
+    """The ViT's residual add + LayerNorm kernel at the served shape
+    (LAYERNORM_CROPS x VIT_TOKENS rows of VIT_WIDTH).  First, in bf16 and
+    f32, both forms against the plain version (ATen's add, then
+    F.layer_norm): the updated stream bit-equal, the LayerNorm within one
+    bf16 ulp (at least 2**-16) or, in f32, 2e-6 of unit-scale values (the
+    kernel's two-pass statistics are not ATen's Welford order).  Then, in
+    bf16, the
+    fused form (x += a, the LayerNorm into a's buffer; x and a read, x and n
+    written) and the plain LayerNorm form (block 0's norm1; x read, n
+    written) timed (CUDA events; the kernel's device time from
+    torch.profiler) against their bytes bound, the plain version and ATen's
+    out-of-place add + layer_norm as the module forward runs them."""
+    from facerecognition_infrenceengine_tpu_torch.ops import layernorm_kernel as lk
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(23)
+    shape = (LAYERNORM_CROPS, VIT_TOKENS, VIT_WIDTH)
+
+    def norm(dtype):
+        m = torch.nn.LayerNorm(VIT_WIDTH, eps=1e-6).to(dev)
+        with torch.no_grad():
+            m.weight.copy_(1 + 0.1 * torch.randn(VIT_WIDTH, generator=gen, device=dev))
+            m.bias.copy_(0.1 * torch.randn(VIT_WIDTH, generator=gen, device=dev))
+        return m.to(dtype)
+
+    def rows(dtype):
+        return (0.7 * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    def rounding(value, want) -> tuple:
+        """(the largest |value - want|, its largest share of the tolerance)"""
+        g, w = value.float(), want.float()
+        err = (g - w).abs()
+        if value.dtype == torch.bfloat16:
+            _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+            tol = torch.ldexp(torch.ones_like(g), e - 8).clamp_min(2.0 ** -16)
+        else:
+            tol = 2e-6 * w.abs().clamp_min(1.0)
+        return float(err.max()), float((err / tol).max())
+
+    errs = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            nrm, x, a = norm(dtype), rows(dtype), rows(dtype)
+            h = x + a
+            want = lk.residual_layernorm_plain(x.clone(), a.clone(), nrm)
+            xs, n = x.clone(), a.clone()
+            got = lk.residual_layernorm(xs, n, nrm)
+            alone = lk.residual_layernorm(h, None, nrm)
+            torch.cuda.synchronize()
+            check(got.data_ptr() == n.data_ptr(), "[layernorm] not written into a's buffer")
+            check(torch.equal(xs, h), f"[layernorm] {dtype}: the stream differs from ATen's add "
+                  f"in {int((xs != h).sum())} values")
+            for what, value in (("fused", got), ("plain_form", alone)):
+                err, share = rounding(value, want)
+                check(share <= 1.0, f"[layernorm] {dtype}: the {what} LayerNorm {err:.3e} from "
+                      f"F.layer_norm, {share:.2f} of its tolerance")
+                errs[f"{what}.{str(dtype).split('.')[-1]}"] = err
+            del nrm, x, a, h, want, xs, n, got, alone
+    say(f"[layernorm] {card} | {shape}: the stream bit-equal to ATen's add; the LayerNorm's "
+        f"largest difference from F.layer_norm {errs}")
+
+    nrm, x, a, out = (norm(torch.bfloat16), rows(torch.bfloat16), rows(torch.bfloat16),
+                      torch.empty(shape, dtype=torch.bfloat16, device=dev))
+    cases = {
+        "residual": (lambda: lk.residual_layernorm(x, a, nrm, out=out),
+                     lambda: lk.residual_layernorm_plain(x, a, nrm, out=out),
+                     lambda: F.layer_norm(x + a, (VIT_WIDTH,), nrm.weight, nrm.bias, nrm.eps), 4),
+        "no_residual": (lambda: lk.residual_layernorm(x, None, nrm, out=out),
+                        lambda: lk.residual_layernorm_plain(x, None, nrm, out=out),
+                        lambda: F.layer_norm(x, (VIT_WIDTH,), nrm.weight, nrm.bias, nrm.eps), 2),
+    }
+    timed = {}
+    with torch.inference_mode():
+        for name, (kernel, plain, aten, passes) in cases.items():
+            moved = x.numel() * 2 * passes
+            bnd, by = bound(moved, 0, "bfloat16")
+            timed[name] = {
+                "ms": time_ms(torch, kernel, 20),
+                "kernel_device_ms": kernel_ms(torch, kernel, "residual_layernorm_kernel", 10),
+                "plain_ms": time_ms(torch, plain, 5, 1),
+                "library_ms": time_ms(torch, aten, 5, 1),
+                "library_device_ms": device_ms(torch, aten, 5),
+                "bound_ms": bnd, "bound_by": by, "bytes": moved}
+        timed["no_residual"]["aten_layer_norm_device_ms"] = kernel_ms(
+            torch, cases["no_residual"][2], "layer_norm_kernel", 10)
+    for name, t in timed.items():
+        say(f"[layernorm] {card} | {name} {shape} bf16: {t['ms']:.4f} ms, device "
+            f"{t['kernel_device_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+            f"({100 * t['bound_ms'] / t['kernel_device_ms']:.1f}%); plain {t['plain_ms']:.3f} ms; "
+            f"ATen's passes {t['library_ms']:.3f} ms (device {t['library_device_ms']:.3f})")
+    say(f"[layernorm] {card} | ATen's layer_norm kernel alone: "
+        f"{timed['no_residual']['aten_layer_norm_device_ms']:.4f} ms device")
+    return {**timed, "max_abs_err": errs}
+
+
+def layernorm_main() -> int:
+    """The residual add + LayerNorm phase alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    say(json.dumps({"layernorm": layernorm_phase(torch, card)}))
+    return 0
+
+
+def vit_phase(torch, card: str) -> dict:
+    """The [vit] path: FaceEngine(rec_arch="vit_l") in bf16 at published
+    widths (synthetic weights) embeds a vit_l.crowd batch, LAYERNORM_CROPS
+    aligned crops, through embed_crops, whose embedder call
+    (_apply_embedder, one engine.embedder span) is the one every served
+    program makes.  residual_layernorm's launch count is zeroed just before
+    VIT_FORWARDS such embeds and must then read 49 a forward (48 fused,
+    block 0's norm1 plain); the embeddings are held to the module forward
+    on the same crops, under the engine's attention backend, within
+    1 - cos VIT_GAP.  The last embed's peak over its base and its time are
+    reported."""
+    from facerecognition_infrenceengine_tpu_torch.core import metrics
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine import pipeline
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+    from facerecognition_infrenceengine_tpu_torch.ops import layernorm_kernel as lk
+    from facerecognition_infrenceengine_tpu_torch.ops.matching import l2_normalize
+    from torch.nn.attention import sdpa_kernel
+
+    t0 = time.perf_counter()
+    engine = pipeline.FaceEngine(EngineConfig(dtype="bfloat16"), rec_arch="vit_l",
+                                 device="cuda")
+    build_s = time.perf_counter() - t0
+    crops = pipeline._calibration_crops(LAYERNORM_CROPS, 112, 23)
+    engine.embed_crops(crops[:8])  # the library and cuBLAS's workspaces
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lk.residual_layernorm.launches = 0
+    metrics.record_spans(True)
+    try:
+        for _ in range(VIT_FORWARDS):
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = engine.embed_crops(crops)
+            embed_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        metrics.record_spans(False)
+    launches = lk.residual_layernorm.launches
+    forwards = sum(1 for sp in metrics.spans() if sp.name == "engine.embedder")
+    check(forwards == VIT_FORWARDS, f"[vit] {forwards} embedder calls for {VIT_FORWARDS} embeds")
+    check(launches == 49 * forwards, f"[vit] {launches} residual_layernorm launches for "
+          f"{forwards} forwards of ViT-L: 49 each")
+    x = arcface.preprocess(torch.from_numpy(crops).cuda())
+    with torch.inference_mode(), sdpa_kernel(pipeline._ATTENTION[engine.dtype]):
+        want = l2_normalize(engine.embedder(x)).double().cpu().numpy()
+    gap = float(np.max(1.0 - np.sum(got.astype(np.float64) * want, axis=1)))
+    check(got.shape == (LAYERNORM_CROPS, 512) and gap <= VIT_GAP,
+          f"[vit] the served ViT-L {gap:.3e} (1 - cos) from the module forward, limit {VIT_GAP}")
+    del engine, x
+    torch.cuda.empty_cache()
+    say(f"[vit] {card} | FaceEngine(vit_l) bf16 built in {build_s:.1f} s; {forwards} embeds of "
+        f"{LAYERNORM_CROPS} crops: {launches} residual_layernorm launches, 1 - cos {gap:.3e} "
+        f"against the module forward; the last embed {embed_ms:.1f} ms, peak {peak:,} B over "
+        f"its base")
+    return {"launches": launches, "forwards": forwards, "cos_gap": gap, "embed_ms": embed_ms,
+            "peak_over_base_bytes": peak}
+
+
+def vit_main() -> int:
+    """The [vit] path phase alone, on the card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say(json.dumps({"vit": vit_phase(torch, card)}))
     return 0
 
 
@@ -5138,6 +5343,8 @@ def main() -> int:
     stem_bnd, stem_by = stem_bound(x48, sw, "bfloat16")
 
     ep = epilogue_phase(torch, card)
+    ln = layernorm_phase(torch, card)
+    vp = vit_phase(torch, card)
 
     def k3_entry(name, size, n_launches, err, t, **extra):
         return {"name": name, "route": "cuda", "source": WARP_SRC,
@@ -5182,6 +5389,11 @@ def main() -> int:
         {"name": "epilogue", "route": "cuda", "source": EPILOGUE_SRC, "replaces": None,
          "launches": launches["epilogue"], "max_abs_err": 0.0, "B": EPILOGUE_B, **ep["bn_prelu"],
          "bn_bn_res": ep["bn_bn_res"]},
+        {"name": "residual_layernorm", "route": "cuda", "source": LAYERNORM_SRC,
+         "replaces": None, "launches": vp["launches"], "forwards": vp["forwards"],
+         "max_abs_err": ln["max_abs_err"]["fused.bfloat16"], "vit_cos_gap": vp["cos_gap"],
+         "shape": [LAYERNORM_CROPS, VIT_TOKENS, VIT_WIDTH], **ln["residual"],
+         "no_residual": ln["no_residual"]},
     ]
     variants = []
     for (dtype_name, bq), ms in times.items():

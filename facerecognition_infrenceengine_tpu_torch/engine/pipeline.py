@@ -422,8 +422,9 @@ class FaceEngine:
         span (``arch``, ``crops``): the int8 twin when the engine holds int8
         weights (the scales dict read once: a recalibration replaces it
         whole); an IResNet through ``arcface.serve_forward`` (its epilogues
-        in place); the ViT with its attention pinned to one backend on the
-        card; else the module."""
+        in place); a ViT through ``vit.serve_forward`` (its residual stream
+        in place), on the card with its attention pinned to one backend;
+        else the module."""
         with metrics.span("engine.embedder", arch=self.rec_arch, crops=int(x.shape[0])):
             if "int8" in self.rec_variables:
                 return quant.apply_int8(self.embedder, self.rec_variables["int8"],
@@ -431,9 +432,11 @@ class FaceEngine:
                                         dtype=self.dtype)
             if isinstance(self.embedder, arcface.IResNet):
                 return arcface.serve_forward(self.embedder, x)
-            if isinstance(self.embedder, vit.VisionTransformer) and x.is_cuda:
+            if isinstance(self.embedder, vit.VisionTransformer):
+                if not x.is_cuda:
+                    return vit.serve_forward(self.embedder, x)
                 with _attention_lock, sdpa_kernel(_ATTENTION[self.dtype]):
-                    return self.embedder(x)
+                    return vit.serve_forward(self.embedder, x)
             return self.embedder(x)
 
     def _embed_impl(self, frames_u8, frame_idx, kps):

@@ -57,6 +57,9 @@ SIGNATURES = {
     # x, out, r, alpha, is_bf16, rows, c, BN_a (w, b, mean, var, eps), BN_b (same), stream
     "fre_epilogue": [_P, _P, _P, _P, _I, ctypes.c_longlong, _I, *[_P] * 4, ctypes.c_float,
                      *[_P] * 4, ctypes.c_float, _P],
+    # x, a, out, gamma, beta, eps, is_bf16, rows, width, stream
+    "fre_residual_layernorm": [_P, _P, _P, _P, _P, ctypes.c_float, _I, ctypes.c_longlong, _I,
+                               _P],
 }
 
 # Host codec entry -> (restype, argument types).

@@ -28,6 +28,12 @@ Submodules carry arcface_torch's attribute names (``patch_embed.proj``,
 through ``F.scaled_dot_product_attention``; the engine pins its backend on
 the card (``engine/pipeline.py``).  Inputs are NHWC scaled to [-1, 1]
 (``arcface.preprocess``); callers L2-normalize the output.
+
+``serve_forward`` is the serving engine's forward: the module's values,
+with the residual stream updated in place and every LayerNorm run by
+``ops/layernorm_kernel`` (on the card the residual add and the LayerNorm
+after it as one pass; on the CPU ATen's ops, equal to the module bit for
+bit), so that a block holds one MLP slab, not two.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.layernorm_kernel import residual_layernorm
 
 LN_EPS = 1e-6
 BN_EPS = 2e-5
@@ -114,6 +122,43 @@ class VisionTransformer(nn.Module):
             x = block(x)
         x = self.norm(x)
         return self.feature(x.reshape(x.shape[0], -1)).float()
+
+
+def serve_forward(model: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
+    """``model(x)`` (bit for bit on the CPU; on the card within the
+    kernel's LayerNorm rounding), owning its residual stream: each
+    block's two residual adds are made in place into the stream ``x``, each
+    by the pass that also writes the next LayerNorm into the added branch's
+    buffer (``residual_layernorm``), ReLU6 runs in place on fc1's output, and
+    every temporary is dropped once read.  At fc1 and fc2 the stream, and
+    either LN2's output or fc2's, are live beside the one hidden slab (the
+    module forward also keeps the block input, the post-attention residual
+    and ReLU6's copy).  Eval mode; the module's own parameters."""
+    if model.training:
+        raise ValueError("serve_forward runs a module in eval mode")
+    x = x.permute(0, 3, 1, 2).to(model.patch_embed.proj.weight.dtype)
+    x = (model.patch_embed(x) + model.pos_embed).contiguous()
+    b, t, c = x.shape
+    blocks = model.blocks
+    n = residual_layernorm(x, None, blocks[0].norm1)
+    for i, block in enumerate(blocks):
+        attn, mlp = block.attn, block.mlp
+        qkv = attn.qkv(n).reshape(b, t, 3, attn.heads, c // attn.heads).permute(2, 0, 3, 1, 4)
+        del n
+        o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], scale=attn.scale)
+        del qkv
+        a = attn.proj(o.transpose(1, 2).reshape(b, t, c))
+        del o
+        n = residual_layernorm(x, a, block.norm2)  # a's buffer
+        del a
+        f = mlp.fc1(n)
+        del n
+        m = mlp.fc2(F.hardtanh(f, mlp.act.min_val, mlp.act.max_val, inplace=True))
+        del f
+        n = residual_layernorm(x, m, blocks[i + 1].norm1 if i + 1 < len(blocks) else model.norm)
+        del m
+    del x
+    return model.feature(n.reshape(b, -1)).float()
 
 
 def vit_l() -> VisionTransformer:

@@ -1105,3 +1105,187 @@ def test_vit_l_at_published_widths_against_the_f32_reference(cuda):
     print(f"vit_l bf16 B=256 against the f32 reference: 1 - cos {gap:.3e} (limit {limit})")
     assert any("flash_fwd_kernel" in n for n in names), names
     assert gap <= limit
+
+
+# ViT-L's residual stream at a vit_l.crowd batch: 1,024 crops of 144 tokens, 768 wide
+VIT_ROWS, VIT_WIDTH = 1024 * 144, 768
+
+
+def _layernorm(width, dtype, device, gen):
+    norm = torch.nn.LayerNorm(width, eps=1e-6).to(device)
+    with torch.no_grad():
+        norm.weight.copy_(1 + 0.1 * torch.randn(width, generator=gen, device=device))
+        norm.bias.copy_(0.1 * torch.randn(width, generator=gen, device=device))
+    return norm.to(dtype)
+
+
+def _assert_within_a_rounding(got, want, h):
+    """The kernel's LayerNorm against ``F.layer_norm`` of the same rows h:
+    bf16 within one ulp of the larger of the two values (at least 2**-16,
+    the ulp at 2**-9, where n = gamma * t + beta cancels); f32 within 2e-6
+    times the value's size (at least 1) and the row's |mean| / std + 1, the
+    f32 rounding of a mean far off zero carried through rstd."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+        tol = torch.ldexp(torch.ones_like(g), e - 8).clamp_min(2.0 ** -16)
+    else:
+        hd = h.double()
+        off = (hd.mean(-1, keepdim=True).abs() / hd.std(-1, keepdim=True)).float()
+        tol = 2e-6 * w.abs().clamp_min(1.0) * (1 + off)
+    worst = float((err / tol).max())
+    assert worst <= 1.0, f"{got.dtype}: {int((err > tol).sum())} values beyond, worst {worst:.2f}"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("scale,offset", [(0.7, 0.0), (3.0, 0.0), (1.0, 5.0)])
+def test_residual_layernorm_kernel_against_aten(cuda, dtype, scale, offset):
+    """At ViT-L's served residual stream (147,456 x 768), on rows of unit
+    and wider scale and on rows far off zero mean: the fused form's stream
+    bit-equal to ATen's ``x + a``, written into x, and its LayerNorm,
+    written into a's buffer, within a rounding of ``F.layer_norm`` of the
+    same sum (the kernel's two-pass statistics are not ATen's Welford
+    order); the plain form the same.  Two launches."""
+    from facerecognition_infrenceengine_tpu_torch.ops import layernorm_kernel as lk
+
+    gen = torch.Generator(cuda).manual_seed(23)
+    norm = _layernorm(VIT_WIDTH, dtype, cuda, gen)
+    x = (scale * torch.randn(VIT_ROWS, VIT_WIDTH, generator=gen, device=cuda)
+         + offset * torch.randn(VIT_ROWS, 1, generator=gen, device=cuda)).to(dtype)
+    a = (scale * torch.randn(VIT_ROWS, VIT_WIDTH, generator=gen, device=cuda)).to(dtype)
+    with torch.inference_mode():
+        h = x + a
+        want = torch.nn.functional.layer_norm(h, (VIT_WIDTH,), norm.weight, norm.bias, norm.eps)
+        before = lk.residual_layernorm.launches
+        got = lk.residual_layernorm(x, a, norm)
+        alone = lk.residual_layernorm(h.clone(), None, norm)
+    torch.cuda.synchronize()
+    assert lk.residual_layernorm.launches == before + 2
+    assert got.data_ptr() == a.data_ptr()
+    assert _bits_equal(x, h), int((x != h).sum())
+    _assert_within_a_rounding(got, want, h)
+    _assert_within_a_rounding(alone, want, h)
+
+
+@pytest.mark.parametrize("width", [128, 256, 384, 512, 640, 896, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_residual_layernorm_kernel_at_every_width(cuda, dtype, width):
+    """Every width the kernel takes (1 to 8 of a warp's 4-element vectors)
+    on 4,099 rows, an odd count: the stream bit-equal to ATen's add, both
+    forms' LayerNorm within a rounding of ATen's."""
+    from facerecognition_infrenceengine_tpu_torch.ops import layernorm_kernel as lk
+
+    gen = torch.Generator(cuda).manual_seed(width)
+    norm = _layernorm(width, dtype, cuda, gen)
+    x, a = ((2 * torch.randn(4099, width, generator=gen, device=cuda) + 1).to(dtype)
+            for _ in range(2))
+    with torch.inference_mode():
+        h = x + a
+        want = torch.nn.functional.layer_norm(h, (width,), norm.weight, norm.bias, norm.eps)
+        got = lk.residual_layernorm(x, a, norm)
+        alone = lk.residual_layernorm(h.clone(), None, norm)
+    torch.cuda.synchronize()
+    assert _bits_equal(x, h)
+    _assert_within_a_rounding(got, want, h)
+    _assert_within_a_rounding(alone, want, h)
+
+
+def _vit_l(device, seed=7):
+    """ViT-L at its published widths in bf16 (the engine's cast), PyTorch's
+    default initialisation with the LayerNorms and positions drawn."""
+    from facerecognition_infrenceengine_tpu_torch.models import vit
+    from facerecognition_infrenceengine_tpu_torch.models.layers import cast_keep_bn_f32
+
+    torch.manual_seed(seed)
+    with torch.device(device):
+        model = vit.vit_l().eval()
+    gen = torch.Generator(device).manual_seed(seed)
+    with torch.no_grad():
+        model.pos_embed.normal_(0, 0.02, generator=gen)
+        for m in model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=gen,
+                                                     device=device))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen, device=device))
+    return cast_keep_bn_f32(model, device, torch.bfloat16)
+
+
+def _vit_crops(n, device, seed):
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+
+    gen = torch.Generator(device).manual_seed(seed)
+    return arcface.preprocess(torch.randint(0, 256, (n, 112, 112, 3), generator=gen,
+                                            device=device, dtype=torch.uint8))
+
+
+def _gap(got, want):
+    """The widest 1 - cos over a batch of embeddings."""
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=1)
+    return float((1 - cos).max())
+
+
+def test_vit_l_serve_forward_against_the_module_at_256_crops(cuda):
+    """ViT-L in bf16 on 256 crops under the engine's attention pin: the
+    served forward within 1 - cos 1e-4 of the module forward (their
+    LayerNorms differ by a rounding), 49 kernel launches (48 fused, block
+    0's norm1 plain), and no ATen layer norm in a trace of it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    from facerecognition_infrenceengine_tpu_torch.models import vit
+    from facerecognition_infrenceengine_tpu_torch.ops import layernorm_kernel as lk
+
+    model = _vit_l(cuda)
+    x = _vit_crops(256, cuda, 8)
+    with torch.inference_mode(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        want = model(x)
+        before = lk.residual_layernorm.launches
+        got = vit.serve_forward(model, x)
+        launched = lk.residual_layernorm.launches - before
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            vit.serve_forward(model, x)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    gap = _gap(got, want)
+    print(f"vit_l bf16 B=256, served against the module: 1 - cos {gap:.3e}, "
+          f"{launched} launches")
+    assert launched == 2 * len(model.blocks) + 1 == 49
+    assert any("residual_layernorm_kernel" in n for n in names), names
+    assert not any("layer_norm_kernel" in n for n in names), names
+    assert gap <= 1e-4
+
+
+def test_vit_l_serve_forward_at_1024_crops_holds_one_mlp_slab(cuda):
+    """ViT-L in bf16 on 1,024 crops (a vit_l.crowd batch): the served
+    forward's peak over the call's base holds the residual stream, LN2's
+    output and fc1's slab (2 x 226,492,416 + 905,969,664 B) and at most 16
+    MiB more, where the module forward also holds the block input, the
+    post-attention residual and ReLU6's slab; the two embeddings within
+    1 - cos 1e-4."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from facerecognition_infrenceengine_tpu_torch.models import vit
+
+    model = _vit_l(cuda)
+    b = 1024
+    x = _vit_crops(b, cuda, 9)
+    stream = b * 144 * 768 * 2
+    hidden = b * 144 * 3072 * 2
+    peaks, outs = {}, {}
+    with torch.inference_mode(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        vit.serve_forward(model, x[:8])  # the library and cuBLAS's workspaces
+        model(x[:8])
+        for name, fn in (("module", model), ("serve", lambda t: vit.serve_forward(model, t))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs[name] = fn(x)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+    print(f"vit_l bf16 B={b}: peak over the call's base: module {peaks['module']:,} B, serve "
+          f"{peaks['serve']:,} B; stream {stream:,} B, fc1's slab {hidden:,} B")
+    assert peaks["module"] >= 3 * stream + 2 * hidden
+    assert peaks["serve"] <= 2 * stream + hidden + 16 * 2**20
+    assert _gap(outs["serve"], outs["module"]) <= 1e-4
