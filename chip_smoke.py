@@ -763,7 +763,7 @@ def vit_phase(torch, card: str) -> dict:
     from facerecognition_infrenceengine_tpu_torch.core import metrics
     from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
     from facerecognition_infrenceengine_tpu_torch.engine import pipeline
-    from facerecognition_infrenceengine_tpu_torch.models import arcface
+    from facerecognition_infrenceengine_tpu_torch.models import arcface, vit
     from facerecognition_infrenceengine_tpu_torch.ops import layernorm_kernel as lk
     from facerecognition_infrenceengine_tpu_torch.ops.matching import l2_normalize
     from torch.nn.attention import sdpa_kernel
@@ -794,7 +794,7 @@ def vit_phase(torch, card: str) -> dict:
     check(launches == 49 * forwards, f"[vit] {launches} residual_layernorm launches for "
           f"{forwards} forwards of ViT-L: 49 each")
     x = arcface.preprocess(torch.from_numpy(crops).cuda())
-    with torch.inference_mode(), sdpa_kernel(pipeline._ATTENTION[engine.dtype]):
+    with torch.inference_mode(), sdpa_kernel(vit._ATTENTION[engine.dtype]):
         want = l2_normalize(engine.embedder(x)).double().cpu().numpy()
     gap = float(np.max(1.0 - np.sum(got.astype(np.float64) * want, axis=1)))
     check(got.shape == (LAYERNORM_CROPS, 512) and gap <= VIT_GAP,
@@ -2926,7 +2926,7 @@ def int8_phase(torch, card: str, requests: list, cfg, app, yapp) -> dict:
             v["cos_min_default"], v["cos_p50_default"] = cosines(ve)
             with torch.inference_mode():
                 frac = quant.clip_fractions(ve.embedder, ve._embed_scales, x_crops,
-                                            depths=ve._quant_depths, dtype=ve.dtype)
+                                            dtype=ve.dtype)
             v["clip_fraction_max_default"] = max(frac.values())
             t0 = time.perf_counter()
             ve.recalibrate_int8()
@@ -2998,7 +2998,7 @@ def int8_phase(torch, card: str, requests: list, cfg, app, yapp) -> dict:
     # downsample, captured from a request of variant c
     vapp, ve = apps["c"]
     det_names = [n for n, _, _ in quant._scrfd_names(ve.detector.cfg)]
-    order = det_names + quant.calibration_order(ve._quant_depths)
+    order = det_names + quant.calibration_order(ve.embedder.depths)
     calls, taken = [0], {}
     real = quant.int8_conv2d_nhwc
 
@@ -3052,8 +3052,7 @@ def int8_phase(torch, card: str, requests: list, cfg, app, yapp) -> dict:
         v["cos_min"], v["cos_p50"] = cosines(apps[key][1])
         with torch.inference_mode():
             frac = quant.clip_fractions(apps[key][1].embedder, apps[key][1]._embed_scales,
-                                        x_crops, depths=apps[key][1]._quant_depths,
-                                        dtype=apps[key][1].dtype)
+                                        x_crops, dtype=apps[key][1].dtype)
         v["clip_fraction_max"] = max(frac.values())
         check(v["cos_min"] >= INT8_COS_MIN, f"{tag} {key}: int8 against bf16 embeddings of the "
               f"float engine's {int(keep.sum())} crops, recalibrated on 8 of them: min cosine "

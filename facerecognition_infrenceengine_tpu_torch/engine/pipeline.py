@@ -62,10 +62,10 @@ import functools
 import os
 import threading
 from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
-from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from .. import native
 from ..core import metrics
@@ -102,18 +102,25 @@ def yuv_black(shape: tuple, device) -> torch.Tensor:
     return black
 
 
-# rec_arch -> embedder; every one reads arcface.preprocess'd 112x112 crops
-_EMBEDDERS = {"r50": arcface.iresnet50, "r18": arcface.iresnet18,
-              "mobilefacenet": mobilefacenet.mobilefacenet, "vit_l": vit.vit_l}
+@dataclass(frozen=True)
+class _Embedder:
+    """A ``rec_arch``'s embedder: calling it builds the float32 module;
+    ``serve(module, x)`` embeds ``arcface.preprocess``'d crops, unnormalized;
+    ``int8``, what ``embed_int8`` does: "quantize" its convs, "ignore", "refuse"."""
 
-# The one SDPA backend the ViT's attention runs on the card, by the
-# engine's dtype, so that the device trace names one kernel: FlashAttention-2
-# (``pytorch_flash::flash_fwd_kernel``) in bf16, the memory-efficient kernel
-# in float32, which FlashAttention does not take.  The backend flags are
-# process-wide, so one lock serializes the forwards that set them.
-_ATTENTION = {torch.bfloat16: SDPBackend.FLASH_ATTENTION,
-              torch.float32: SDPBackend.EFFICIENT_ATTENTION}
-_attention_lock = threading.Lock()
+    build: Callable[[], torch.nn.Module]
+    serve: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor]
+    int8: str
+
+    def __call__(self) -> torch.nn.Module:
+        return self.build()
+
+
+_EMBEDDERS = {"r50": _Embedder(arcface.iresnet50, arcface.serve_forward, "quantize"),
+              "r18": _Embedder(arcface.iresnet18, arcface.serve_forward, "quantize"),
+              "mobilefacenet": _Embedder(mobilefacenet.mobilefacenet, torch.nn.Module.__call__,
+                                         "ignore"),
+              "vit_l": _Embedder(vit.vit_l, vit.serve_forward, "refuse")}
 
 
 def _stride_rows(height: int, width: int) -> np.ndarray:
@@ -288,16 +295,17 @@ class FaceEngine:
         self.cfg = cfg or get_config().engine
         self.device = resolve_device(device)
         self.dtype = torch.bfloat16 if self.cfg.dtype == "bfloat16" else torch.float32
-        if rec_arch not in _EMBEDDERS:
+        rec = _EMBEDDERS.get(rec_arch)
+        if rec is None:
             raise ValueError(f"rec_arch {rec_arch!r}: one of {sorted(_EMBEDDERS)}")
-        if self.cfg.embed_int8 and rec_arch == "vit_l":
+        if self.cfg.embed_int8 and rec.int8 == "refuse":
             raise ValueError("embed_int8: the int8 embedder is IResNet's; there is no int8 ViT")
         self.rec_arch = rec_arch
+        self._serve_embedder = rec.serve
         h, w = self.cfg.det_size
         detector = _from_variables(f"scrfd_{det_arch}", scrfd.SCRFD(scrfd.CONFIGS[det_arch]),
                                    det_variables, seed)
-        embedder = _from_variables(f"arcface_{rec_arch}", _EMBEDDERS[rec_arch](),
-                                   rec_variables, seed + 1)
+        embedder = _from_variables(f"arcface_{rec_arch}", rec(), rec_variables, seed + 1)
         # K4's BN-folded stem weights, folded from the float32 module before
         # the cast (the reference folds from its float32 variables)
         self.stem_width = detector.cfg.stem_width
@@ -317,10 +325,8 @@ class FaceEngine:
         self._embed_scales = None
         self._int8_calibration = None
         self._det_scales = None
-        if self.cfg.embed_int8 and rec_arch in ("r50", "r18"):
-            self._quant_depths = (3, 4, 14, 3) if rec_arch == "r50" else (2, 2, 2, 2)
-            self.rec_variables["int8"] = self._on_device(
-                quant.quantize_weights(embedder, depths=self._quant_depths))
+        if self.cfg.embed_int8 and rec.int8 == "quantize":
+            self.rec_variables["int8"] = self._on_device(quant.quantize_weights(embedder))
         if self.cfg.det_int8:
             self.det_variables["int8"] = self._on_device(
                 quant.quantize_scrfd_weights(detector, detector.cfg))
@@ -421,28 +427,17 @@ class FaceEngine:
         """Every embedding program's embedder, as an ``engine.embedder``
         span (``arch``, ``crops``): the int8 twin when the engine holds int8
         weights (the scales dict read once: a recalibration replaces it
-        whole); an IResNet through ``arcface.serve_forward`` (its epilogues
-        in place); a ViT through ``vit.serve_forward`` (its residual stream
-        in place), on the card with its attention pinned to one backend;
-        else the module."""
+        whole), else the ``rec_arch``'s serving forward (``_EMBEDDERS``)."""
         with metrics.span("engine.embedder", arch=self.rec_arch, crops=int(x.shape[0])):
             if "int8" in self.rec_variables:
                 return quant.apply_int8(self.embedder, self.rec_variables["int8"],
-                                        self._embed_scales, x, depths=self._quant_depths,
-                                        dtype=self.dtype)
-            if isinstance(self.embedder, arcface.IResNet):
-                return arcface.serve_forward(self.embedder, x)
-            if isinstance(self.embedder, vit.VisionTransformer):
-                if not x.is_cuda:
-                    return vit.serve_forward(self.embedder, x)
-                with _attention_lock, sdpa_kernel(_ATTENTION[self.dtype]):
-                    return vit.serve_forward(self.embedder, x)
-            return self.embedder(x)
+                                        self._embed_scales, x, dtype=self.dtype)
+            return self._serve_embedder(self.embedder, x)
 
     def _embed_impl(self, frames_u8, frame_idx, kps):
         crops = warp_faces_two_pass(frames_u8, frame_idx, kps, self.cfg.embed_size,
                                     dst=self._dst)
-        return l2_normalize(self._apply_embedder(arcface.preprocess(crops)))
+        return self._embed_crops_impl(crops)
 
     def _embed_crops_impl(self, crops):
         return l2_normalize(self._apply_embedder(arcface.preprocess(crops)))
@@ -467,7 +462,7 @@ class FaceEngine:
         frame_idx = torch.arange(b, device=self.device).repeat_interleave(f)
         crops = warp_faces_two_pass_packed(frames_p4, frame_idx, kps.reshape(b * f, 5, 2),
                                            self.cfg.embed_size, dst=self._dst)
-        emb = l2_normalize(self._apply_embedder(arcface.preprocess(crops)))
+        emb = self._embed_crops_impl(crops)
         return boxes, scores, kps, valid, emb.reshape(b, f, -1)
 
     def _fused_yuv_impl(self, frames_y24, det_threshold: float):
@@ -661,8 +656,7 @@ class FaceEngine:
         else:
             label = f"user({len(crops_u8)} crops)"
         x = arcface.preprocess(self._to_device(np.asarray(crops_u8, np.uint8)))
-        self._embed_scales = quant.calibrate(self.embedder, x, depths=self._quant_depths,
-                                             dtype=self.dtype)
+        self._embed_scales = quant.calibrate(self.embedder, x, dtype=self.dtype)
         self._int8_calibration = label
 
     def _has_packed_stem(self) -> bool:

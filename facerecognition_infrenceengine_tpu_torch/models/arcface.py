@@ -69,6 +69,7 @@ class IResNet(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
+        self.depths = tuple(depths)  # the int8 twin (models/quant.py) walks the same stages
         self.Conv_0 = Conv2d(3, widths[0], 3, 1, 1, bias=False)
         self.BatchNorm_0 = nn.BatchNorm2d(widths[0], eps=BN_EPS)
         self.PReLU_0 = PReLU(widths[0])

@@ -92,13 +92,13 @@ def _collect_point(collect, xin, collect_reduce, collect_scales):
         collect.append(torch.max(torch.abs(xin)))
 
 
-def quantize_weights(model, depths: Sequence[int] = DEPTHS, min_block: int = 0) -> dict:
+def quantize_weights(model, min_block: int = 0) -> dict:
     """Per-output-channel int8 conv kernels + scales for every block conv:
     {"<block>/<conv>": (w8 [3, 3, ci, co] or [1, 1, ci, co], sw [co])}.  The
     stem conv and Dense are not quantized; ``min_block`` keeps earlier
     blocks in float."""
     out = {}
-    for b in range(min_block, sum(depths)):
+    for b in range(min_block, sum(model.depths)):
         blk = getattr(model, f"IBasicBlock_{b}")
         for conv in ("Conv_0", "Conv_1", "Conv_2"):
             if hasattr(blk, conv):
@@ -106,8 +106,8 @@ def quantize_weights(model, depths: Sequence[int] = DEPTHS, min_block: int = 0) 
     return out
 
 
-def _forward(model, x, qw=None, act_scales=None, depths=DEPTHS, dtype=torch.bfloat16,
-             collect=None, collect_reduce="absmax", collect_scales=None):
+def _forward(model, x, qw=None, act_scales=None, dtype=torch.bfloat16, collect=None,
+             collect_reduce="absmax", collect_scales=None):
     """Shared forward of the embedder, x [B, 112, 112, 3] preprocessed NHWC.
     With qw + act_scales: int8 convs at the points qw holds (the rest
     float).  With ``collect`` (a list): the float forward, appending a
@@ -132,8 +132,8 @@ def _forward(model, x, qw=None, act_scales=None, depths=DEPTHS, dtype=torch.bflo
     x = _float_conv(x, model.Conv_0.weight, 1, 1, dtype)
     x = _prelu(_bn(x, model.BatchNorm_0), model.PReLU_0)
 
-    starts = set(np.cumsum((0,) + tuple(depths))[:-1].tolist())
-    for b in range(sum(depths)):
+    starts = set(np.cumsum((0,) + model.depths)[:-1].tolist())
+    for b in range(sum(model.depths)):
         name = f"IBasicBlock_{b}"
         blk = getattr(model, name)
         stride = 2 if b in starts else 1
@@ -173,43 +173,40 @@ def _scales(names, maxes, margin: float) -> dict:
 
 
 @torch.no_grad()
-def calibrate(model, calib_x, depths: Sequence[int] = DEPTHS, dtype=torch.bfloat16,
-              margin: float = 1.0) -> dict:
+def calibrate(model, calib_x, dtype=torch.bfloat16, margin: float = 1.0) -> dict:
     """The float forward over a calibration batch -> {quant point: python
     float activation scale} (abs-max / 127 * margin).  One host read at the
     end."""
     maxes = []
-    _forward(model, calib_x, depths=depths, dtype=dtype, collect=maxes)
-    return _scales(calibration_order(depths), torch.stack(maxes).cpu().numpy(), margin)
+    _forward(model, calib_x, dtype=dtype, collect=maxes)
+    return _scales(calibration_order(model.depths), torch.stack(maxes).cpu().numpy(), margin)
 
 
 @torch.no_grad()
-def apply_int8(model, qw, act_scales, x, depths: Sequence[int] = DEPTHS,
-               dtype=torch.bfloat16) -> torch.Tensor:
+def apply_int8(model, qw, act_scales, x, dtype=torch.bfloat16) -> torch.Tensor:
     """int8 embedder forward: un-normalized [B, 512] float32 embeddings, the
     contract of ``IResNet.forward`` (callers L2-normalize)."""
-    return _forward(model, x, qw=qw, act_scales=act_scales, depths=depths, dtype=dtype)
+    return _forward(model, x, qw=qw, act_scales=act_scales, dtype=dtype)
 
 
 @torch.no_grad()
-def clip_fractions(model, act_scales, x, depths: Sequence[int] = DEPTHS,
-                   dtype=torch.bfloat16) -> dict:
+def clip_fractions(model, act_scales, x, dtype=torch.bfloat16) -> dict:
     """Per quant point, the share of activations that would clip at the
     given scales (|a| > 127 * scale), from one float forward: {point:
     python float in [0, 1]}.  A healthy calibration keeps every entry near
     0; persistent clipping means recalibrate (FaceEngine.recalibrate_int8)."""
-    names = calibration_order(depths)
+    names = calibration_order(model.depths)
     fracs = []
-    _forward(model, x, depths=depths, dtype=dtype, collect=fracs, collect_reduce="clipfrac",
+    _forward(model, x, dtype=dtype, collect=fracs, collect_reduce="clipfrac",
              collect_scales=[act_scales[n] for n in names])
     return {n: float(v) for n, v in zip(names, torch.stack(fracs).cpu().numpy())}
 
 
 @torch.no_grad()
-def apply_float(model, x, depths: Sequence[int] = DEPTHS, dtype=torch.bfloat16) -> torch.Tensor:
+def apply_float(model, x, dtype=torch.bfloat16) -> torch.Tensor:
     """The same functional forward without quantization (the twin the tests
     pin against ``IResNet.forward``)."""
-    return _forward(model, x, depths=depths, dtype=dtype)
+    return _forward(model, x, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------

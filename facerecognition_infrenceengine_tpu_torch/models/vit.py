@@ -25,8 +25,7 @@ Submodules carry arcface_torch's attribute names (``patch_embed.proj``,
 ``pos_embed``, ``blocks.<i>.norm1``, ``.attn.qkv``, ``.attn.proj``,
 ``.norm2``, ``.mlp.fc1``, ``.mlp.fc2``, ``norm``, ``feature.<i>``), so
 ``models/weights.py`` maps each to its flax path by name.  Attention runs
-through ``F.scaled_dot_product_attention``; the engine pins its backend on
-the card (``engine/pipeline.py``).  Inputs are NHWC scaled to [-1, 1]
+through ``F.scaled_dot_product_attention``.  Inputs are NHWC scaled to [-1, 1]
 (``arcface.preprocess``); callers L2-normalize the output.
 
 ``serve_forward`` is the serving engine's forward: the module's values,
@@ -38,14 +37,21 @@ bit), so that a block holds one MLP slab, not two.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from ..ops.layernorm_kernel import residual_layernorm
 
 LN_EPS = 1e-6
 BN_EPS = 2e-5
+
+_ATTENTION = {torch.bfloat16: SDPBackend.FLASH_ATTENTION,
+              torch.float32: SDPBackend.EFFICIENT_ATTENTION}
+_attention_lock = threading.Lock()
 
 
 class PatchEmbed(nn.Module):
@@ -126,7 +132,19 @@ class VisionTransformer(nn.Module):
 
 def serve_forward(model: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
     """``model(x)`` (bit for bit on the CPU; on the card within the
-    kernel's LayerNorm rounding), owning its residual stream: each
+    kernel's LayerNorm rounding).  On the card the attention runs on one
+    SDPA backend by the module's dtype (``_ATTENTION``: FlashAttention-2 in
+    bf16, the memory-efficient kernel in float32, which FlashAttention does
+    not take), so that the device trace names one kernel; the flags are
+    process-wide, so one lock serializes the forwards that set them."""
+    if not x.is_cuda:
+        return _serve_forward(model, x)
+    with _attention_lock, sdpa_kernel(_ATTENTION[model.patch_embed.proj.weight.dtype]):
+        return _serve_forward(model, x)
+
+
+def _serve_forward(model: VisionTransformer, x: torch.Tensor) -> torch.Tensor:
+    """``serve_forward``'s body, owning its residual stream: each
     block's two residual adds are made in place into the stream ``x``, each
     by the pass that also writes the next LayerNorm into the added branch's
     buffer (``residual_layernorm``), ReLU6 runs in place on fc1's output, and

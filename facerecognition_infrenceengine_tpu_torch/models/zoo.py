@@ -10,11 +10,12 @@ modules (on by default, as in buffalo_l), ``gender``, ``age`` and
 MobileFaceNet, ``"vit_l"`` arcface_torch's ViT-L; any other name IResNet-50.
 
 Frames of any size are letterboxed onto the detector canvas by the host
-codec (``native.letterbox``).  When every frame of a batch fits the canvas
-unscaled (the 640x480 camera on a 640x640 canvas) one fused detect -> align
--> embed call runs and its packed [B, F, 528] result is the one download.
-Otherwise (720p and 1080p cameras) the batch takes two programs: detect on
-the canvases, boxes and landmarks divided by each frame's float32 letterbox
+codec (``native.letterbox``).  ``get_batch_async`` picks a batch's program
+once (``_route``).  When every frame of a batch fits the canvas unscaled
+(the 640x480 camera on a 640x640 canvas) one fused detect -> align -> embed
+call runs and its packed [B, F, 528] result is the one download.  Otherwise
+(720p and 1080p cameras) the batch takes two programs: detect on the
+canvases, boxes and landmarks divided by each frame's float32 letterbox
 scale, then ``embed_faces`` from the native frames padded to a common size.
 The attribute heads crop from the same frames as the embedder.
 
@@ -137,17 +138,6 @@ class FaceAnalysis:
                 per_frame.append(faces[:max_num] if max_num else faces)
             return per_frame
 
-    def _get_batch_fused(self, engine, stacked: np.ndarray, n: int, max_num: int) -> list:
-        """One detect + align + embed call on canvases that are the native
-        frames (scale 1.0), one upload, one packed download; the attribute
-        heads crop from the same uploaded canvases."""
-        frames = engine._to_device(stacked)
-        flat = engine.detect_align_embed_flat(frames, det_threshold=self.det_thresh)
-        per_frame = self._faces_from_fused_flat(flat, n, max_num)
-        if self._want_attrs:
-            self._attach_attributes(engine, frames, per_frame)
-        return per_frame
-
     def _attach_attributes(self, engine, frames, per_frame: list) -> None:
         with metrics.span("facade.faces"):
             flat_faces = [face for faces in per_frame for face in faces]
@@ -169,17 +159,19 @@ class FaceAnalysis:
     def _is_pack(frame) -> bool:
         return getattr(frame, "ndim", 0) == 3 and frame.shape[-1] == 24
 
+    def _fits(self, frame) -> bool:
+        """Whether a frame (a pack: the content rows it decodes to) fits the
+        canvas at letterbox scale 1.0."""
+        k = 4 if self._is_pack(frame) else 1
+        return min(d / (k * s) for d, s in zip(self.cfg.det_size, frame.shape[:2])) == 1.0
+
     def _yuv_eligible(self, engine, frames) -> bool:
         """The half-byte transport: configured, recognition on and the
         attribute heads off (they crop raw frames), and every frame a pack
         already or fitting the canvas at letterbox scale 1.0."""
-        if (self.cfg.stream_transport != "yuv420"
-                or "recognition" not in self.allowed_modules
-                or self._want_attrs or not engine._has_packed_stem()):
-            return False
-        dh, dw = self.cfg.det_size
-        return all(self._is_pack(f) or min(dh / f.shape[0], dw / f.shape[1]) == 1.0
-                   for f in frames)
+        return (self.cfg.stream_transport == "yuv420" and "recognition" in self.allowed_modules
+                and not self._want_attrs and engine._has_packed_stem()
+                and all(self._is_pack(f) or self._fits(f) for f in frames))
 
     @metrics.on_device
     def encode_frame(self, frame_bgr: np.ndarray) -> np.ndarray:
@@ -194,8 +186,8 @@ class FaceAnalysis:
         (capture) thread, and returned as a tensor on the engine's device
         (``cuda`` unless the app or its engine names another)."""
         dh, dw = self.cfg.det_size
-        h, w = frame_bgr.shape[:2]
-        if self.cfg.stream_transport != "yuv420" or min(dh / h, dw / w) != 1.0:
+        h = frame_bgr.shape[0]
+        if self.cfg.stream_transport != "yuv420" or not self._fits(frame_bgr):
             return frame_bgr
         rgb = np.ascontiguousarray(frame_bgr[..., ::-1])
         pack = native.letterbox_yuv420_s2d4(rgb, min(-(-h // 4) * 4, dh), dw)[0]
@@ -231,72 +223,69 @@ class FaceAnalysis:
             stacked[i, :p.shape[0]] = p
         return stacked
 
-    def _dispatch_yuv(self, engine, frames):
-        with metrics.span("facade.prep"):
-            packs = [f if self._is_pack(f) else self.encode_frame(f) for f in frames]
-            stacked = self._stack_yuv(packs, self.cfg.det_size[1])
-        return engine.detect_align_embed_yuv420_flat(stacked, det_threshold=self.det_thresh)
-
-    def _decode_mixed_packs(self, frames: list) -> list:
-        """Packs in a batch that cannot take the yuv path are decoded back to
-        BGR content rows on the host (the 4:2:0 chroma loss was paid at
-        encode), so the raw path sees plain frames."""
-        return [np.ascontiguousarray(yuv420p4_to_rgb_host(
-                    f.cpu().numpy() if isinstance(f, torch.Tensor) else np.asarray(f))[..., ::-1])
-                if self._is_pack(f) else f for f in frames]
+    def _rgb(self, frame) -> np.ndarray:
+        """A BGR frame as an RGB view; a pack decoded to RGB content rows on
+        the host (its 4:2:0 chroma loss was paid at encode)."""
+        if self._is_pack(frame):
+            return yuv420p4_to_rgb_host(torch.as_tensor(frame).cpu().numpy())
+        return frame[..., ::-1]
 
     # ------------------------------------------------------------ batches
+    def _route(self, engine, frames) -> str:
+        """A batch's program: "yuv" (``_yuv_eligible``); "fused" (one call
+        on canvases that are the native frames) when recognition is on and
+        every frame fits at scale 1.0; else "two_program"."""
+        if self._yuv_eligible(engine, frames):
+            return "yuv"
+        if "recognition" in self.allowed_modules and all(self._fits(f) for f in frames):
+            return "fused"
+        return "two_program"
+
     @metrics.on_device
     def get_batch_async(self, frames: list, max_num: int = 0):
-        """Dispatch a batch without waiting for the card -> ``resolve()``
-        returning per-frame lists of Face.  On the fused paths (yuv420, and
-        rgb at scale 1.0 with the attribute heads off) the packed [B, F, 528]
-        result stays on the card until ``resolve`` downloads it, so the
-        caller can prepare the next batch meanwhile; the other paths run
-        synchronously."""
+        """Dispatch a batch on the route ``_route`` picks -> ``resolve()``
+        returning per-frame lists of Face.  On the yuv route, and the fused
+        one with the attribute heads off, the packed [B, F, 528] result
+        stays on the card until ``resolve`` downloads it, so the caller can
+        prepare the next batch meanwhile; the others run synchronously."""
         if not frames:
             return lambda: []
         engine = self._ensure_engine()
         n = len(frames)
-        if self._yuv_eligible(engine, frames):
-            flat = self._dispatch_yuv(engine, frames)
-            return lambda: self._faces_from_fused_flat(flat, n, max_num)
-        frames = self._decode_mixed_packs(frames)
-        dh, dw = self.cfg.det_size
-        if ("recognition" in self.allowed_modules and not self._want_attrs
-                and all(min(dh / f.shape[0], dw / f.shape[1]) == 1.0 for f in frames)):
+        route = self._route(engine, frames)
+        if route == "yuv":
             with metrics.span("facade.prep"):
-                stacked = np.zeros((bucket(n), dh, dw, 3), np.uint8)
-                for i, f in enumerate(frames):
-                    stacked[i] = letterbox(f[..., ::-1], self.cfg.det_size)[0]  # BGR -> RGB
-            flat = engine.detect_align_embed_flat(stacked, det_threshold=self.det_thresh)
+                packs = [f if self._is_pack(f) else self.encode_frame(f) for f in frames]
+                stacked = self._stack_yuv(packs, self.cfg.det_size[1])
+            flat = engine.detect_align_embed_yuv420_flat(stacked, det_threshold=self.det_thresh)
             return lambda: self._faces_from_fused_flat(flat, n, max_num)
-        results = self.get_batch(frames, max_num=max_num)
-        return lambda: results
+        with metrics.span("facade.prep"):
+            rgb = [self._rgb(f) for f in frames]
+            stacked = np.zeros((bucket(n),) + tuple(self.cfg.det_size) + (3,), np.uint8)
+            scales = [1.0] * n
+            for i, f in enumerate(rgb):
+                stacked[i], scales[i] = letterbox(f, self.cfg.det_size)
+        if route == "two_program":
+            per_frame = self._two_programs(engine, rgb, stacked, scales, max_num)
+            return lambda: per_frame
+        # with the heads, one upload here, which they crop from too
+        canvases = engine._to_device(stacked) if self._want_attrs else stacked
+        flat = engine.detect_align_embed_flat(canvases, det_threshold=self.det_thresh)
+        if not self._want_attrs:
+            return lambda: self._faces_from_fused_flat(flat, n, max_num)
+        per_frame = self._faces_from_fused_flat(flat, n, max_num)
+        self._attach_attributes(engine, canvases, per_frame)
+        return lambda: per_frame
 
     @metrics.on_device
     def get_batch(self, frames: list, max_num: int = 0) -> list:
-        """Batched BGR frames (or yuv420 packs from ``encode_frame``) ->
-        per-frame lists of Face."""
-        if not frames:
-            return []
-        engine = self._ensure_engine()
-        if self._yuv_eligible(engine, frames):
-            return self._faces_from_fused_flat(self._dispatch_yuv(engine, frames),
-                                               len(frames), max_num)
-        with metrics.span("facade.prep"):
-            frames = self._decode_mixed_packs(frames)
-            # BGR -> RGB, one contiguous copy a frame for the letterbox and
-            # the embedder's batch
-            rgb_frames = [np.ascontiguousarray(f[..., ::-1]) for f in frames]
-            stacked = np.zeros((bucket(len(frames)),) + tuple(self.cfg.det_size) + (3,), np.uint8)
-            scales = []
-            for i, rgb in enumerate(rgb_frames):
-                stacked[i], scale = letterbox(rgb, self.cfg.det_size)
-                scales.append(scale)
-        if "recognition" in self.allowed_modules and all(s == 1.0 for s in scales):
-            return self._get_batch_fused(engine, stacked, len(frames), max_num)
+        """``get_batch_async`` resolved: per-frame lists of Face."""
+        return self.get_batch_async(frames, max_num)()
 
+    def _two_programs(self, engine, rgb: list, stacked, scales: list, max_num: int) -> list:
+        """Detect on the canvases, coordinates divided by each frame's
+        letterbox scale, then embed and crop the heads from the native RGB
+        frames padded to a common size."""
         det = engine.detect(stacked, det_threshold=self.det_thresh)
         with metrics.span("facade.faces"):
             per_frame, all_idx, all_kps = [], [], []
@@ -306,31 +295,30 @@ class FaceAnalysis:
                 faces = [Face(bbox=det.boxes[b, f] / scale, det_score=float(det.scores[b, f]),
                               kps=det.kps[b, f] / scale)
                          for f in range(det.valid.shape[1]) if det.valid[b, f]]
-                if max_num:
-                    faces = faces[:max_num]
+                faces = faces[:max_num] if max_num else faces
                 per_frame.append(faces)
                 all_idx += [b] * len(faces)
                 all_kps += [face.kps for face in faces]
-        if all_idx:
-            with metrics.span("facade.prep"):
-                # embed from the native frames, padded to a common size (a
-                # multiple of 8: the pyramid's three 2x2 pools) and a
-                # bucketed count
-                max_h = max(f.shape[0] for f in rgb_frames)
-                max_w = max(f.shape[1] for f in rgb_frames)
-                batch = np.zeros((bucket(len(rgb_frames)), max_h + (-max_h) % 8,
-                                  max_w + (-max_w) % 8, 3), np.uint8)
-                for i, f in enumerate(rgb_frames):
-                    batch[i, :f.shape[0], :f.shape[1]] = f
-            batch = engine._to_device(batch)  # one upload for embedder and heads
-            if "recognition" in self.allowed_modules:
-                emb = engine.embed_faces(batch, np.asarray(all_idx, np.int32),
-                                         np.stack(all_kps).astype(np.float32))
-                with metrics.span("facade.faces"):
-                    for face, e in zip((f for faces in per_frame for f in faces), emb):
-                        face.normed_embedding = e
-            if self._want_attrs:
-                self._attach_attributes(engine, batch, per_frame)
+        if not all_idx:
+            return per_frame
+        with metrics.span("facade.prep"):
+            # the native RGB frames, padded to a common size (a multiple of
+            # 8: the pyramid's three 2x2 pools) and a bucketed count
+            max_h = max(f.shape[0] for f in rgb)
+            max_w = max(f.shape[1] for f in rgb)
+            batch = np.zeros((bucket(len(rgb)), max_h + (-max_h) % 8,
+                              max_w + (-max_w) % 8, 3), np.uint8)
+            for i, f in enumerate(rgb):
+                batch[i, :f.shape[0], :f.shape[1]] = f
+        batch = engine._to_device(batch)  # one upload for embedder and heads
+        if "recognition" in self.allowed_modules:
+            emb = engine.embed_faces(batch, np.asarray(all_idx, np.int32),
+                                     np.stack(all_kps).astype(np.float32))
+            with metrics.span("facade.faces"):
+                for face, e in zip((f for faces in per_frame for f in faces), emb):
+                    face.normed_embedding = e
+        if self._want_attrs:
+            self._attach_attributes(engine, batch, per_frame)
         return per_frame
 
 

@@ -52,17 +52,6 @@ def _cpu(monkeypatch):
     cpu_by_default(monkeypatch)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module, restored after: its forwards run
-    many small ops, which more threads slow down, more so while the suite's
-    other workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _rand_tree(tree, seed):
     """Random leaves for a flax tree by tests/test_packed_stem.py's rule:
     fan-in scaled normal conv kernels, variances in [0.5, ...), scales near

@@ -1,5 +1,17 @@
 """Run a reference test file's cases against the port's modules (a helper of
-the port's tests; it holds no test of its own).
+the port's tests), and size torch's CPU pool for the whole suite (its one
+test checks that size).
+
+Inside a pytest-xdist worker, importing this module sets torch's intra-op
+pool to the worker's share of the cores, ``os.cpu_count() //
+PYTEST_XDIST_WORKER_COUNT`` threads (at least one): each worker's torch
+otherwise starts a pool as wide as the machine, and the workers' pools
+together oversubscribe the cores many times over, which slows the port's
+many small forwards several times.  One call at import reaches every
+worker: its name makes this module a test file, and every xdist worker
+collects every test file before it runs any test, whatever files
+``--dist loadfile`` then gives it.  Outside xdist (a file run alone) torch
+keeps its own pool.
 
 ``exec_port_cases(name, namespace)`` reads ``tests/<name>``, re-points every
 ``facerecognition_infrenceengine_tpu`` import (and the module paths inside its
@@ -40,6 +52,27 @@ import re
 import sys
 
 import pytest
+import torch
+
+# torch's pool before this module sized it, which a run outside xdist keeps
+_TORCH_THREADS = torch.get_num_threads()
+
+
+def _worker_threads():
+    """The intra-op threads of one xdist worker, or None outside xdist."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return None
+    return max(1, os.cpu_count() // int(os.environ["PYTEST_XDIST_WORKER_COUNT"]))
+
+
+if _worker_threads() is not None:
+    torch.set_num_threads(_worker_threads())
+
+
+def test_torch_pool_is_the_workers_share_of_the_cores():
+    want = _worker_threads()
+    assert torch.get_num_threads() == (_TORCH_THREADS if want is None else want)
+
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 _REFERENCE = re.compile(r"\bfacerecognition_infrenceengine_tpu\b(?!_torch)")

@@ -58,17 +58,6 @@ def _cpu(monkeypatch):
     cpu_by_default(monkeypatch)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module, restored after: its forwards run
-    many small ops, which more threads slow down, more so while the suite's
-    other workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def ref_int8():
     """The reference's engine with both int8 modes (its int8 weights are
@@ -144,7 +133,7 @@ def test_calibration_crops_bit_identical(n, size, seed):
 def test_quantize_weights_bit_identical(ref_int8):
     ref, tm, sm = ref_int8
     want = ref.rec_variables["int8"]
-    got = quant.quantize_weights(tm, depths=D18)
+    got = quant.quantize_weights(tm)
     assert list(got) == list(want) == quant.calibration_order(D18)
     for name, (w8, sw) in want.items():
         assert got[name][0].dtype == torch.int8 and got[name][1].dtype == torch.float32
@@ -152,7 +141,7 @@ def test_quantize_weights_bit_identical(ref_int8):
         np.testing.assert_array_equal(got[name][1].numpy(), np.asarray(sw))
         # stored Cout-major: the GEMM operand is a view, no copy
         assert int8_conv.gemm_weight(got[name][0]).data_ptr() == got[name][0].data_ptr()
-    assert list(quant.quantize_weights(tm, depths=D18, min_block=3)) == [
+    assert list(quant.quantize_weights(tm, min_block=3)) == [
         n for n in want if int(n.split("/")[0].split("_")[1]) >= 3]
 
 
@@ -233,7 +222,7 @@ def test_calibrate_scales_match_the_reference(ref_int8, ref_scales):
     """Scales rel 1e-5 on user crops (the engines' default and det scales:
     test_int8_engines_match_the_reference)."""
     want = ref_scales
-    got = quant.calibrate(ref_int8[1], _both(_crops(4, 2))[1], depths=D18,
+    got = quant.calibrate(ref_int8[1], _both(_crops(4, 2))[1],
                           dtype=torch.float32)
     assert list(got) == list(want) and all(isinstance(v, float) for v in got.values())
     assert all(abs(got[k] - want[k]) <= 1e-5 * want[k] for k in want)
@@ -244,7 +233,7 @@ def test_float_twin_matches_the_reference_and_the_module(ref_int8):
     the twin against the reference's twin and the port's IResNet."""
     jv, tm = ref_int8[0].rec_variables, ref_int8[1]
     jx, tx = _both(_crops(3, 1))
-    got = quant.apply_float(tm, tx, depths=D18, dtype=torch.float32).numpy()
+    got = quant.apply_float(tm, tx, dtype=torch.float32).numpy()
     want = np.asarray(jax.jit(lambda v, x: jquant.apply_float(
         v, x, depths=D18, dtype=jnp.float32))(jv, jx))
     atol = 1e-4 * max(1.0, np.abs(want).max())
@@ -283,7 +272,7 @@ def test_apply_int8_on_the_reference_scales_and_weights(ref_int8, record_propert
                                         ref._embed_scales, jx, depths=D18,
                                         dtype=jnp.float32))
     got = quant.apply_int8(tm, _as_torch(ref.rec_variables["int8"]), ref._embed_scales, tx,
-                           depths=D18, dtype=torch.float32).numpy()
+                           dtype=torch.float32).numpy()
     assert got.shape == (4, 512) and got.dtype == np.float32
     record_property("max_1_minus_cos", float(np.max(1.0 - _cos(got, want))))
     assert np.all(1.0 - _cos(got, want) <= 1e-3), 1.0 - _cos(got, want)
@@ -292,17 +281,17 @@ def test_apply_int8_on_the_reference_scales_and_weights(ref_int8, record_propert
 def test_int8_close_to_float(ref_int8):
     """Hand-written equivalent of test_quant.py::test_int8_close_to_float."""
     tm = ref_int8[1]
-    scales = quant.calibrate(tm, _both(_crops(4, 2))[1], depths=D18, dtype=torch.float32)
-    qw = quant.quantize_weights(tm, depths=D18)
+    scales = quant.calibrate(tm, _both(_crops(4, 2))[1], dtype=torch.float32)
+    qw = quant.quantize_weights(tm)
     assert set(scales) == set(qw)
     tx = _both(_crops(6, 3))[1]
     with torch.no_grad():
         ref = tm(tx).numpy()
-    got = quant.apply_int8(tm, qw, scales, tx, depths=D18, dtype=torch.float32).numpy()
+    got = quant.apply_int8(tm, qw, scales, tx, dtype=torch.float32).numpy()
     assert _cos(ref, got).min() > 0.98, _cos(ref, got)
     # bf16: against the bf16 float twin
-    ref = quant.apply_float(tm, tx[:2], depths=D18, dtype=torch.bfloat16).numpy()
-    got = quant.apply_int8(tm, qw, scales, tx[:2], depths=D18, dtype=torch.bfloat16).numpy()
+    ref = quant.apply_float(tm, tx[:2], dtype=torch.bfloat16).numpy()
+    got = quant.apply_int8(tm, qw, scales, tx[:2], dtype=torch.bfloat16).numpy()
     assert _cos(ref, got).min() > 0.98, _cos(ref, got)
 
 
@@ -316,7 +305,7 @@ def test_clip_fractions_match_the_reference(ref_int8, ref_scales, monkeypatch):
     monkeypatch.setattr(quant, "_collect_point",
                         lambda c, x, *a: (sizes.append(x.numel()), real(c, x, *a)))
     s = {n: v * 0.25 for n, v in ref_scales.items()}
-    got = quant.clip_fractions(tm, s, tx, depths=D18, dtype=torch.float32)
+    got = quant.clip_fractions(tm, s, tx, dtype=torch.float32)
     want = jquant.clip_fractions(jv, s, jx, depths=D18, dtype=jnp.float32)
     assert list(got) == list(want) and len(sizes) == len(want)
     for (name, w), n in zip(want.items(), sizes):
@@ -337,10 +326,10 @@ def test_recalibrate_and_clip_fractions():
     assert e._embed_scales != s0 and e._embed_scales is not s0
     assert e.embed_crops(crops).shape == (4, 512)
     x = arcface.preprocess(torch.from_numpy(crops))
-    fr = quant.clip_fractions(e.embedder, e._embed_scales, x, depths=D18, dtype=torch.float32)
+    fr = quant.clip_fractions(e.embedder, e._embed_scales, x, dtype=torch.float32)
     assert all(0.0 <= v <= 1e-6 for v in fr.values()), fr
     shrunk = {k: v * 0.25 for k, v in e._embed_scales.items()}
-    assert max(quant.clip_fractions(e.embedder, shrunk, x, depths=D18,
+    assert max(quant.clip_fractions(e.embedder, shrunk, x,
                                     dtype=torch.float32).values()) > 0.0
     np.testing.assert_array_equal(_calibration_crops(2, 112), _calibration_crops(2, 112))
 
@@ -381,7 +370,7 @@ def test_int8_error_on_high_contrast_crops_is_the_reference(ref_int8, port_int8)
     cos_ref = _cos(np.asarray(ref.embed_crops(u8)), ref_float)
     cos_port = _cos(port.embed_crops(u8), port_float)
     assert np.all(np.abs(cos_port - cos_ref) <= 1e-3), (cos_port, cos_ref)
-    fr = quant.clip_fractions(port.embedder, port._embed_scales, tx, depths=D18,
+    fr = quant.clip_fractions(port.embedder, port._embed_scales, tx,
                               dtype=torch.float32)
     assert max(fr.values()) > 1e-3, fr
 

@@ -392,7 +392,7 @@ def test_recalibrate_route_reaches_a_real_int8_engine():
     decoded = [native.decode_image(b) for b in pngs]
     decoded[2] = native.resize_bilinear(decoded[2], 112, 112)
     want = quant.calibrate(engine.embedder, arcface.preprocess(torch.from_numpy(
-        np.stack(decoded))), depths=(2, 2, 2, 2), dtype=torch.float32)
+        np.stack(decoded))), dtype=torch.float32)
     assert engine._embed_scales == want and want != s0
     after = engine.embed_crops(probe)
     assert not np.array_equal(after, before)

@@ -9,6 +9,7 @@ leaves' ones and zeros would hide a swapped scale or bias).  At published
 widths only the meta device is used.  This file imports no JAX.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -177,8 +178,8 @@ def test_published_widths_on_the_meta_device():
 
 @pytest.fixture
 def small_vit(monkeypatch):
-    monkeypatch.setitem(pipeline._EMBEDDERS, "vit_l",
-                        functools.partial(vit.VisionTransformer, **SMALL))
+    monkeypatch.setitem(pipeline._EMBEDDERS, "vit_l", dataclasses.replace(
+        pipeline._EMBEDDERS["vit_l"], build=functools.partial(vit.VisionTransformer, **SMALL)))
     return random_leaves(4)
 
 

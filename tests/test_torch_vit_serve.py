@@ -8,11 +8,14 @@ serve every ViT the engine embeds with.  The kernel itself is held to ATen
 on the card (``tests/test_torch_gpu.py``).  This file imports no JAX.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend
 
 from facerecognition_infrenceengine_tpu_torch.core import metrics
 from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
@@ -156,17 +159,22 @@ def test_the_kernel_takes_rows_of_128_to_1024(width, dtype):
 
 def test_the_engine_serves_a_vit_through_serve_forward_on_the_cpu(small_vit,  # noqa: F811
                                                                   monkeypatch):
-    """``_apply_embedder`` sends a ViT through ``vit.serve_forward`` on the
-    CPU as on the card, never through the module forward, one
-    ``engine.embedder`` span a call; the embeddings are the module's."""
+    """``_apply_embedder`` sends a ViT through its registered
+    ``vit.serve_forward`` on the CPU as on the card, never through the
+    module forward, one ``engine.embedder`` span a call; the embeddings are
+    the module's.  The forward owns its attention pin: FlashAttention in
+    bf16, the memory-efficient kernel in float32."""
+    assert vit._ATTENTION == {torch.bfloat16: SDPBackend.FLASH_ATTENTION,
+                              torch.float32: SDPBackend.EFFICIENT_ATTENTION}
+    row = pipeline._EMBEDDERS["vit_l"]
+    assert row.serve is vit.serve_forward
     served = []
 
     def recorded(model, x):
         served.append(x.shape[0])
-        return serve_forward(model, x)
+        return row.serve(model, x)
 
-    serve_forward = vit.serve_forward
-    monkeypatch.setattr(vit, "serve_forward", recorded)
+    monkeypatch.setitem(pipeline._EMBEDDERS, "vit_l", dataclasses.replace(row, serve=recorded))
     cfg = EngineConfig(det_size=(64, 64), max_faces=2, pre_nms_topk=16, dtype="float32")
     engine = FaceEngine(cfg, rec_variables=data.nested(small_vit), det_arch="det_500m",
                         rec_arch="vit_l", device="cpu")

@@ -207,6 +207,44 @@ def test_encode_frame_is_the_reference_pack_content_rows(engines):
         assert app.encode_frame(frame) is frame
 
 
+TWO = ("detection", "recognition")
+# (transport, modules, frames: a 1-tuple is a frame encode_frame packs, route)
+ROUTES = {
+    "scale 1": ("rgb", ALL, BATCHES["scale 1"], "fused"),
+    "720p": ("rgb", ALL, [_frame(22, 720, 1280), _frame(23, 720, 1280)], "two_program"),
+    "mixed scales": ("rgb", ALL, BATCHES["mixed"], "two_program"),
+    "no recognition": ("rgb", ("detection",), BATCHES["scale 1"], "two_program"),
+    "yuv with heads": ("yuv420", ALL, BATCHES["scale 1"], "fused"),
+    "yuv without heads": ("yuv420", TWO, BATCHES["scale 1"], "yuv"),
+    "packs without heads": ("yuv420", TWO, [(_frame(7, 96, 128),), (_frame(24, 94, 128),)],
+                            "yuv"),
+    "mixed packs": ("yuv420", TWO, [(_frame(7, 96, 128),), _frame(1, 192, 256)], "two_program"),
+    "packs with heads": ("yuv420", ALL, [(_frame(7, 96, 128),), _frame(8, 96, 128)], "fused"),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_route_is_the_references_decision(engines, name):
+    """``FaceAnalysis._route`` against the reference's decisions on the
+    same batch: its ``_yuv_eligible``, then, packs decoded, recognition on
+    and the codec's letterbox scale 1.0 for every frame (its fused path)."""
+    ref, port = engines
+    transport, modules, frames, want = ROUTES[name]
+    cfg = dict(KW, stream_transport=transport)
+    app = FaceAnalysis(cfg=EngineConfig(**cfg), engine=port, allowed_modules=modules)
+    jax_app = jax_zoo.FaceAnalysis(cfg=JaxEngineConfig(**cfg), engine=ref,
+                                   allowed_modules=modules)
+    frames = [app.encode_frame(f[0]) if isinstance(f, tuple) else f for f in frames]
+    if jax_app._yuv_eligible(ref, frames):
+        ref_route = "yuv"
+    else:
+        scales = [jax_zoo.letterbox(f[..., ::-1], KW["det_size"])[1]
+                  for f in jax_app._decode_mixed_packs(frames)]
+        fused = "recognition" in modules and all(s == 1.0 for s in scales)
+        ref_route = "fused" if fused else "two_program"
+    assert app._route(port, frames) == ref_route == want
+
+
 def test_get_batch_async_resolves_to_get_batch(engines, served):
     _, port = engines
     two = FaceAnalysis(cfg=EngineConfig(**KW), engine=port,
