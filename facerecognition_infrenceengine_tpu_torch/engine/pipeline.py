@@ -6,7 +6,8 @@ SCRFD forward -> sigmoid -> decode -> masked top-k -> greedy NMS into
 ``max_faces`` fixed slots, then Umeyama -> pyramid atlas -> K3 warp (each
 face's ROI window read straight from the atlas) -> IResNet, MobileFaceNet
 or ViT-L (``rec_arch``) -> L2 normalize, with every shape static per batch
-size.
+size.  Each model's input is made once, in the dtype its forward casts to,
+from K3's float32 crops, which go before the model runs (``model_input``).
 ``detect_align_embed_flat`` packs the outputs into one [B, F, 528] tensor
 (boxes 4 | score 1 | kps 10 | valid 1 | emb 512).
 
@@ -72,7 +73,7 @@ from ..core import metrics
 from ..core.config import EngineConfig, get_config
 from ..core.device import resolve_device
 from ..models import arcface, genderage, landmark106, mobilefacenet, onnxlite, quant, scrfd, vit
-from ..models.layers import cast_keep_bn_f32
+from ..models.layers import cast_keep_bn_f32, compute_dtype
 from ..models.onnx_exec import OnnxRunner
 from ..models.packed_stem import packed_stem_forward, packed_stem_forward_s2d4
 from ..models.packed_stem import precompute_packed_stem, precompute_packed_stem_s2d4
@@ -106,21 +107,50 @@ def yuv_black(shape: tuple, device) -> torch.Tensor:
 class _Embedder:
     """A ``rec_arch``'s embedder: calling it builds the float32 module;
     ``serve(module, x)`` embeds ``arcface.preprocess``'d crops, unnormalized;
-    ``int8``, what ``embed_int8`` does: "quantize" its convs, "ignore", "refuse"."""
+    ``int8``, what ``embed_int8`` does: "quantize" its convs, "ignore", "refuse";
+    ``input_dtype(module)``, the dtype its forward casts its input to."""
 
     build: Callable[[], torch.nn.Module]
     serve: Callable[[torch.nn.Module, torch.Tensor], torch.Tensor]
     int8: str
+    input_dtype: Callable[[torch.nn.Module], torch.dtype]
 
     def __call__(self) -> torch.nn.Module:
         return self.build()
 
 
-_EMBEDDERS = {"r50": _Embedder(arcface.iresnet50, arcface.serve_forward, "quantize"),
-              "r18": _Embedder(arcface.iresnet18, arcface.serve_forward, "quantize"),
+def _iresnet_dtype(m):
+    return compute_dtype(m, m.Conv_0)
+
+
+_EMBEDDERS = {"r50": _Embedder(arcface.iresnet50, arcface.serve_forward, "quantize",
+                               _iresnet_dtype),
+              "r18": _Embedder(arcface.iresnet18, arcface.serve_forward, "quantize",
+                               _iresnet_dtype),
               "mobilefacenet": _Embedder(mobilefacenet.mobilefacenet, torch.nn.Module.__call__,
-                                         "ignore"),
-              "vit_l": _Embedder(vit.vit_l, vit.serve_forward, "refuse")}
+                                         "ignore",
+                                         lambda m: compute_dtype(m, m.ConvBlock_0.Conv_0)),
+              "vit_l": _Embedder(vit.vit_l, vit.serve_forward, "refuse",
+                                 lambda m: m.patch_embed.proj.weight.dtype)}
+
+
+def model_input(crops: torch.Tensor, scale: float, dtype: torch.dtype,
+                own: bool = False) -> torch.Tensor:
+    """A model's input from crops [M, S, S, C]: ``(crops - 127.5) / scale``
+    in ``dtype``, bit for bit ``preprocess(crops).to(dtype)`` (the same
+    kernels and scalars; ``arcface.preprocess``'s scale is 127.5,
+    ``genderage.preprocess``'s 128.0).  ``own``: the crops are float32 and
+    the program's own (K3's output), so they are normalised in place;
+    otherwise a float32 copy is, and the caller's tensor is never written.
+    Out of float32 the normalised tensor is dropped on return, its bytes
+    counted by ``engine.crops_released``: the caller frees K3's crops
+    before the model runs by holding no other name for them."""
+    x = crops if own else crops.to(torch.float32, copy=True)
+    x.sub_(127.5).div_(scale)
+    if dtype == torch.float32:
+        return x
+    metrics.counter("engine.crops_released").inc(x.numel() * x.element_size())
+    return x.to(dtype)
 
 
 def _stride_rows(height: int, width: int) -> np.ndarray:
@@ -302,6 +332,7 @@ class FaceEngine:
             raise ValueError("embed_int8: the int8 embedder is IResNet's; there is no int8 ViT")
         self.rec_arch = rec_arch
         self._serve_embedder = rec.serve
+        self._embedder_dtype = rec.input_dtype
         h, w = self.cfg.det_size
         detector = _from_variables(f"scrfd_{det_arch}", scrfd.SCRFD(scrfd.CONFIGS[det_arch]),
                                    det_variables, seed)
@@ -434,13 +465,22 @@ class FaceEngine:
                                         self._embed_scales, x, dtype=self.dtype)
             return self._serve_embedder(self.embedder, x)
 
+    def _embedder_input(self, crops: torch.Tensor, own: bool = False) -> torch.Tensor:
+        """``model_input`` for the embedder: in the engine's dtype for the
+        int8 twin (``quant._forward`` rounds its input to it), else in the
+        dtype the ``rec_arch``'s forward casts to."""
+        dtype = self.dtype if "int8" in self.rec_variables else self._embedder_dtype(self.embedder)
+        return model_input(crops, 127.5, dtype, own)
+
     def _embed_impl(self, frames_u8, frame_idx, kps):
-        crops = warp_faces_two_pass(frames_u8, frame_idx, kps, self.cfg.embed_size,
-                                    dst=self._dst)
-        return self._embed_crops_impl(crops)
+        # K3's crops are named nowhere: they go once the input is made
+        x = self._embedder_input(warp_faces_two_pass(frames_u8, frame_idx, kps,
+                                                     self.cfg.embed_size, dst=self._dst), own=True)
+        return l2_normalize(self._apply_embedder(x))
 
     def _embed_crops_impl(self, crops):
-        return l2_normalize(self._apply_embedder(arcface.preprocess(crops)))
+        """A caller's crops, left as they are."""
+        return l2_normalize(self._apply_embedder(self._embedder_input(crops)))
 
     def _fused_impl(self, frames_u8, det_threshold: float):
         """detect -> align -> embed at fixed [B, max_faces]."""
@@ -460,9 +500,10 @@ class FaceEngine:
         boxes, scores, kps, valid = self._detect_packed_impl(frames_p4, det_threshold)
         b, f = valid.shape
         frame_idx = torch.arange(b, device=self.device).repeat_interleave(f)
-        crops = warp_faces_two_pass_packed(frames_p4, frame_idx, kps.reshape(b * f, 5, 2),
-                                           self.cfg.embed_size, dst=self._dst)
-        emb = self._embed_crops_impl(crops)
+        x = self._embedder_input(warp_faces_two_pass_packed(
+            frames_p4, frame_idx, kps.reshape(b * f, 5, 2), self.cfg.embed_size, dst=self._dst),
+            own=True)
+        emb = l2_normalize(self._apply_embedder(x))
         return boxes, scores, kps, valid, emb.reshape(b, f, -1)
 
     def _fused_yuv_impl(self, frames_y24, det_threshold: float):
@@ -516,7 +557,10 @@ class FaceEngine:
         argmax(out[:2]), age = round(out[2] * 100), landmarks (out + 1) *
         size / 2 mapped back through the crop's affine.  The exact graphs
         take NCHW float32 crops, mean 0 / std 1 (insightface's blob settings
-        for these two heads), and their first output."""
+        for these two heads), and their first output.  The synthetic heads
+        each get their input made in their dtype from K3's crops, which go
+        before the head runs (``model_input``); the genderage input goes
+        before the landmark head runs."""
         ga_model, lm_model = self._ensure_attr_models()
         ga_size, lm_size = self._attr_sizes
         atlas = build_atlas(frames_u8)  # one pyramid for both crop sizes
@@ -524,13 +568,18 @@ class FaceEngine:
                                        scale_factor=1.5, atlas=atlas)
         lm_crops = warp_boxes_two_pass(frames_u8, frame_idx, bboxes, lm_size,
                                        scale_factor=1.5, atlas=atlas)
+        del atlas
         if self._attr_runners is not None:
             ga_out = ga_model(ga_crops.permute(0, 3, 1, 2).float())[0]
             lm = lm_model(lm_crops.permute(0, 3, 1, 2).float())[0]
             lm = lm.reshape(lm.shape[0], -1, 2)
         else:
-            ga_out = ga_model(genderage.preprocess(ga_crops))
-            lm = lm_model(genderage.preprocess(lm_crops))
+            x = model_input(ga_crops, 128.0, ga_model.Dense_0.weight.dtype, own=True)
+            del ga_crops
+            ga_out = ga_model(x)
+            x = model_input(lm_crops, 128.0, lm_model.Dense_0.weight.dtype, own=True)
+            del lm_crops
+            lm = lm_model(x)
         gender = torch.argmax(ga_out[:, :2], dim=1)
         age = torch.round(ga_out[:, 2] * 100.0)
         lm_px = (lm + 1.0) * (lm_size / 2.0)

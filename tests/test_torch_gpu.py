@@ -1289,3 +1289,109 @@ def test_vit_l_serve_forward_at_1024_crops_holds_one_mlp_slab(cuda):
     assert peaks["module"] >= 3 * stream + 2 * hidden
     assert peaks["serve"] <= 2 * stream + hidden + 16 * 2**20
     assert _gap(outs["serve"], outs["module"]) <= 1e-4
+
+
+# A crowd batch's faces: 32 frames of a 640x640 canvas, 32 faces each
+def _crowd_faces(device, seed):
+    """Frames [32, 640, 640, 3] u8, frame_idx [1,024], and each face's box
+    [1,024, 4] and landmarks [1,024, 5, 2] (ARCFACE_DST scaled 0.6-1.8
+    and moved inside its frame)."""
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (32, 640, 640, 3), np.uint8)).to(device)
+    m = 32 * 32
+    scale = rng.uniform(0.6, 1.8, m).astype(np.float32)
+    origin = rng.uniform(0, 640 - 112 * 1.8, (m, 2)).astype(np.float32)
+    kps = ARCFACE_DST[None] * scale[:, None, None] + origin[:, None]
+    side = 112 * scale[:, None]
+    boxes = np.concatenate([origin, origin + side], axis=1)
+    idx = torch.arange(32, device=device).repeat_interleave(32)
+    return frames, idx, torch.from_numpy(boxes).to(device), torch.from_numpy(kps).to(device)
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and torch.equal(a.contiguous().view(torch.uint8),
+                                              b.contiguous().view(torch.uint8))
+
+
+def _bf16_engine(device):
+    from facerecognition_infrenceengine_tpu_torch.core.config import EngineConfig
+    from facerecognition_infrenceengine_tpu_torch.engine.pipeline import FaceEngine
+
+    return FaceEngine(EngineConfig(dtype="bfloat16"), det_arch="det_500m", rec_arch="r50",
+                      device=device)
+
+
+def test_attributes_at_1024_boxes_hold_the_landmark_input_and_one_stage(cuda):
+    """The attribute program on a crowd batch's 1,024 boxes in bf16: its
+    peak over entry is the landmark head's first stage, its bf16 192x192
+    input and the stage's conv and BatchNorm outputs (2 x 452,984,832 B),
+    with at most 16 MiB more (K3's float32 crops, their normalised copies
+    and the atlas gone before each head runs); gender, age and landmarks
+    bit-equal to the composition the inputs replaced."""
+    import types
+
+    from test_torch_model_input import _parent_attributes_impl
+
+    engine = _bf16_engine(cuda)
+    frames, idx, boxes, _ = _crowd_faces(cuda, 31)
+    m = len(idx)
+    lm_input = m * 192 * 192 * 3 * 2
+    stage = m * 24 * 96 * 96 * 2
+    peaks, outs = {}, {}
+    with torch.inference_mode():
+        engine._attributes_impl(frames, idx, boxes)  # the heads, cuDNN's plans
+        for name, fn in (("change", engine._attributes_impl),
+                         ("parent", types.MethodType(_parent_attributes_impl, engine))):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            outs[name] = fn(frames, idx, boxes)
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+    print(f"attributes bf16 M={m}: peak over entry: change {peaks['change']:,} B, parent "
+          f"{peaks['parent']:,} B; landmark input {lm_input:,} B, a stage slab {stage:,} B")
+    assert all(_same_bits(g, w) for g, w in zip(outs["change"], outs["parent"]))
+    assert peaks["change"] <= lm_input + 2 * stage + 16 * 2**20
+
+
+def test_embedder_at_1024_crops_starts_with_its_bf16_input_alone(cuda, monkeypatch):
+    """IResNet-50 in bf16 on a crowd batch's 1,024 K3 crops: when the
+    embedder starts, what the call allocated over its entry is the bf16
+    input alone (+1 MiB), through ``_embed_crops_impl`` on crops handed in
+    (their float32 copy gone) and ``_embed_impl`` making them (K3's float32
+    crops gone); the embeddings bit-equal to ``arcface.preprocess`` then the
+    forward's cast."""
+    from facerecognition_infrenceengine_tpu_torch.models import arcface
+    from facerecognition_infrenceengine_tpu_torch.ops.matching import l2_normalize
+
+    engine = _bf16_engine(cuda)
+    frames, idx, _, kps = _crowd_faces(cuda, 32)
+    m = len(idx)
+    x_bytes = m * 112 * 112 * 3 * 2
+    at_start = []
+    serve = engine._serve_embedder
+
+    def embedder(model, x):
+        at_start.append(torch.cuda.memory_allocated())
+        return serve(model, x)
+
+    monkeypatch.setattr(engine, "_serve_embedder", embedder)
+    with torch.inference_mode():
+        crops = warp2pass.warp_faces_two_pass(frames, idx, kps, 112, dst=engine._dst)
+        engine._embed_crops_impl(crops[:8])  # cuDNN's plans, cuBLAS's workspace
+        over = {}
+        for name, fn in (("crops", lambda: engine._embed_crops_impl(crops)),
+                         ("frames", lambda: engine._embed_impl(frames, idx, kps))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            got = fn()
+            over[name] = (got, at_start[-1] - base)
+        monkeypatch.setattr(engine, "_serve_embedder", serve)
+        want = l2_normalize(engine._apply_embedder(arcface.preprocess(crops)))
+    print(f"embedder bf16 M={m}: allocated over entry when the embedder starts: "
+          f"{ {k: v[1] for k, v in over.items()} } B; bf16 input {x_bytes:,} B, "
+          f"f32 crops {2 * x_bytes:,} B")
+    for got, extra in over.values():
+        assert _same_bits(got, want)
+        assert x_bytes <= extra <= x_bytes + 2**20
